@@ -64,7 +64,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      plain _reference / _packed_reference at GPT-2 small's hap shapes:
      (32, 12, 512, 64) causal with ragged key lengths, (16, 12, 1024, 64)
      with 64-token and with ragged pack_segments segments, and small
-     cases (t0 > 0, a zero key length, fp32)
+     cases (t0 > 0, a zero key length, fp32); in bf16 two planted faults
+     (the causal diagonal off by one, the last partial key tile dropped)
+     that must exceed the limit
  14. kernel K10 (fused lm_head + cross-entropy) against the plain
      ce_nll_lse at hap's (N=16384, V=50304, D=768) in bf16, and fp32 at
      N=2048
@@ -89,7 +91,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      reset just before it
  19. kernels K6a/K6b (flash attention backward: dq, then dk and dv)
      against the plain _backward_reference at hala's (8, 12, 1024, 64)
-     causal bf16, and fp32 at N=2; K5 with its lse at the same shape
+     causal bf16, and fp32 at N=2; K5 with its lse at the same shape (in
+     bf16 with the planted fault of the diagonal off by one)
  20. GPT-2 small (``decoder``) training, one hala update at batch 8 x 1024
      (accumulation 1; counts reset just before, read just after): exact
      launches K5-lse 12, K6a 12, K6b 12, K10 1; the kernel path's loss and
@@ -1724,6 +1727,30 @@ def qkv_views(torch, dev, N, H, T, D, dtype, seed):
             for t in qkv.split(H * D, dim=-1)]
 
 
+def flash_faults(torch, flash, got, q, k, v, kvl, t0, ragged):
+    """The K5 checks' planted faults, emulated from the plain version,
+    against the kernel's output ``got`` (causal): the causal diagonal off by
+    one (``_reference`` at t0 + 1) and, where the key lengths are
+    ``ragged``, the last partial key tile dropped (each length rounded down
+    to the bf16 kernel's 128-key tile). Each must read beyond ATTN_TOL:
+    the limit sits between rounding and the design's likely errors.
+    -> {fault: max |d|}; raises if the check would pass one."""
+    faults = {"diagonal off by one": flash._reference(q, k, v, kvl, True,
+                                                      t0 + 1)}
+    if ragged:
+        faults["last partial key tile dropped"] = flash._reference(
+            q, k, v, torch.div(kvl, 128, rounding_mode="floor") * 128, True,
+            t0)
+    out = {}
+    for name, want in faults.items():
+        ok, err, mean = within(torch, got, want, ATTN_TOL["bfloat16"])
+        print(f"  planted fault, {name}: max|do|={err:.3e} mean {mean:.3e} "
+              f"(must exceed the limit)", flush=True)
+        check(not ok, f"K5's check passes a planted fault: {name}")
+        out[name] = err
+    return out
+
+
 def phase_flash(torch, dev):
     """K5 at hap --no-pack's shape with ragged key lengths, small cases
     (t0 > 0 and a zero key length, fp32); K7 at hap's packed shape with
@@ -1778,6 +1805,8 @@ def phase_flash(torch, dev):
               f"ms, SDPA(is_causal) {lib_ms:.3f} ms, bound {b_ms:.4f} ms "
               f"({b_by})", flush=True)
         check(ok, f"K5 disagrees with _reference at {(n, H, T, D, name)}")
+        if name == "bfloat16":
+            flash_faults(torch, flash, got, q, k, v, kvl, 0, ragged=True)
         k5[f"{n}x{H}x{T}x{D} {name}"] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=lib_ms)
@@ -2798,6 +2827,8 @@ def phase_flash_bwd(torch, dev):
               f"{ms:.4f} ms, plain {p_ms:.3f} ms, SDPA(is_causal) "
               f"{l_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
         check(ok and lse_err <= 1e-3, f"K5's lse path disagrees at {key}")
+        if name == "bfloat16":
+            flash_faults(torch, flash, o, q, k, v, kvl, 0, ragged=False)
         lse_r[key] = dict(max_abs_err=max(err, lse_err), ms=ms,
                           plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                           library_ms=l_ms)

@@ -1,7 +1,9 @@
 """Kernels K5, K6a/K6b and K7: flash attention in CUDA. The forward
 (``csrc/flash_fwd.cu``) with per-batch key lengths and causal offset
-(K5), or with per-token segment ids for packed rows (K7); the backward of
-K5 (``csrc/flash_bwd.cu``): dq (K6a), then dk and dv (K6b).
+(K5), or with per-token segment ids for packed rows (K7): in bf16 one
+warp-specialized Hopper kernel (wgmma fed by TMA through an mbarrier
+ring), in fp32 a CUDA-core one; the backward of K5
+(``csrc/flash_bwd.cu``): dq (K6a), then dk and dv (K6b).
 
 Mirrors ``haloop_tpu.ops.flash.flash_attention`` and
 ``flash_attention_packed``:
@@ -127,7 +129,8 @@ def _check(name, q, k, v, *more):
             raise ValueError(f"{name}: expected (N, H, T, D) tensors")
         if not _rows_ok(t):
             raise ValueError(f"{name}: rows must be contiguous and 16-byte "
-                             "aligned")
+                             "aligned, strides multiples of 16 bytes under "
+                             "2^40")
     N, H, T, D = q.shape
     if k.shape != v.shape or k.shape[:2] != (N, H) or k.shape[3] != D:
         raise ValueError(f"{name}: shapes {tuple(q.shape)}, "
@@ -141,10 +144,13 @@ def _check(name, q, k, v, *more):
 
 def _rows_ok(t):
     """Whether the kernels take t's rows where they are: contiguous and
-    16-byte aligned (the one statement of that rule)."""
+    16-byte aligned, every byte stride a multiple of 16 and under 2^40
+    (the rule of the TMA tensor maps that the bf16 forward reads q, k and v
+    through; the one statement of that rule)."""
     align = 16 // t.element_size()
     return t.dim() == 4 and t.stride(-1) == 1 and t.data_ptr() % 16 == 0 \
-        and not any(s % align for s in t.stride()[:3])
+        and not any(s % align or s * t.element_size() >= 1 << 40
+                    for s in t.stride()[:3])
 
 
 def _heads_last(N, H, T, D, like):

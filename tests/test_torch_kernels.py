@@ -758,6 +758,15 @@ FLASH_CASES = [
     (2, 2, 160, 288, True, 5, 64),
     (3, 4, 70, 70, True, 0, 32),         # gpt-nano's head width
     (32, 12, 512, 512, True, 0, 64),     # hap --no-pack at GPT-2 small
+    # the bf16 kernel's 128-row tiles: edges, t0 > 0 with T < S
+    (2, 2, 1, 1, True, 0, 64),
+    (2, 2, 127, 127, True, 0, 64),
+    (2, 2, 128, 128, True, 0, 32),
+    (2, 2, 129, 129, True, 0, 64),
+    (2, 2, 129, 300, True, 7, 64),
+    (2, 2, 127, 300, True, 7, 32),
+    (2, 2, 1, 300, True, 7, 64),
+    (8, 12, 1024, 1024, True, 0, 64),    # hala at GPT-2 small (with lse)
 ]
 
 
@@ -817,7 +826,9 @@ def _segments(N, T, rng_seed, lengths=None):
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,H,T,seg_len", [(2, 2, 256, None),
                                            (2, 3, 300, None),
-                                           (16, 12, 1024, 64)])
+                                           (16, 12, 1024, 64),
+                                           (2, 2, 129, None),
+                                           (4, 12, 1024, None)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_packed_kernel_matches_plain(cuda, N, H, T, seg_len, causal,
@@ -830,6 +841,56 @@ def test_flash_packed_kernel_matches_plain(cuda, N, H, T, seg_len, causal,
     assert flash_cuda.packed_launches == before + 1
     assert torch.isfinite(o.float()).all()
     _close_attn(o, flash._packed_reference(q, k, v, seg, causal), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+def test_flash_reads_the_fused_projection_in_place(cuda, packed):
+    """q, k, v as the GPT makes them, strided views of one (N, T, 3 H D)
+    projection: the kernel reads them where they lie (its TMA maps take
+    the views' strides), so the call allocates o and nothing else."""
+    N, H, T, D = 4, 12, 256, 64
+    q, k, v = _qkv(cuda, N, H, T, T, D, torch.bfloat16, seed=7, fused=True)
+    assert not q.is_contiguous()
+    kvl = torch.full((N,), T, dtype=torch.int32, device=cuda)
+    seg = _segments(N, T, 1).to(cuda)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    o = flash_cuda.flash_packed_cuda(q, k, v, seg) if packed else \
+        flash_cuda.flash_fwd_cuda(q, k, v, kvl, True, 0)
+    torch.cuda.synchronize()
+    o_bytes = -(-o.numel() * o.element_size() // 512) * 512
+    assert torch.cuda.max_memory_allocated() - base <= o_bytes
+    want = flash._packed_reference(q, k, v, seg, True) if packed else \
+        flash._reference(q, k, v, kvl, True, 0)
+    _close_attn(o, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_flash_rejects_views_tma_cannot_take(cuda):
+    """A row stride that is not a multiple of 16 bytes, or a byte stride
+    of 2^40 or more, is refused before any launch (TMA's rule for the
+    maps of q, k and v)."""
+    N, H, T, D = 2, 2, 64, 64
+    q, k, v = _qkv(cuda, N, H, T, T, D, torch.bfloat16, seed=9)
+    kvl = torch.full((N,), T, dtype=torch.int32, device=cuda)
+    wide = torch.zeros((N, T, H * D + 4), dtype=torch.bfloat16, device=cuda)
+    odd = wide[..., :H * D].unflatten(-1, (H, D)).transpose(1, 2)
+    far = torch.zeros((H, T, D), dtype=torch.bfloat16, device=cuda) \
+        .as_strided((1, H, T, D), (1 << 39, T * D, D, 1))
+    before = flash_cuda.launches, flash_cuda.packed_launches
+    for bad in (odd, far):
+        n = bad.shape[0]
+        with pytest.raises(ValueError, match="16 bytes"):
+            flash_cuda.flash_fwd_cuda(bad, k[:n], v[:n], kvl[:n], True, 0)
+        with pytest.raises(ValueError, match="16 bytes"):
+            flash_cuda.flash_fwd_cuda(q[:n], k[:n], bad, kvl[:n], True, 0)
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_cuda.flash_packed_cuda(odd, odd, odd,
+                                     torch.ones((N, T), dtype=torch.int32,
+                                                device=cuda))
+    assert (flash_cuda.launches, flash_cuda.packed_launches) == before
 
 
 K6_CASES = [
