@@ -91,7 +91,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      reset just before it
  19. kernels K6a/K6b (flash attention backward: dq, then dk and dv)
      against the plain _backward_reference at hala's (8, 12, 1024, 64)
-     causal bf16, and fp32 at N=2; K5 with its lse at the same shape (in
+     causal bf16, with full and with ragged key lengths, and fp32 at N=2;
+     in bf16 two planted faults (the diagonal off by one, the last
+     partial key tile dropped); K5 with its lse at the same shape (in
      bf16 with the planted fault of the diagonal off by one)
  20. GPT-2 small (``decoder``) training, one hala update at batch 8 x 1024
      (accumulation 1; counts reset just before, read just after): exact
@@ -253,6 +255,10 @@ Q8_LOGIT_TOL = 0.5
 # |d| 2e-2 of the largest gradient, mean |d| 1e-2 of the mean
 K6_TOL = {"float32": dict(max=2e-5),
           "bfloat16": dict(max=2e-2, mean=1e-2)}
+# hala's 8 rows with ragged key lengths, drawn as phase 13 draws K5's
+# (T/2 .. T, generator seed 2, the first full): the case whose last
+# partial key tiles a planted K6 fault drops
+K6_RAGGED = [1024, 797, 520, 782, 988, 632, 764, 768]
 # one hala update of GPT-2 small in bf16, kernel path against plain path
 # on the same batch: the loss (forward: K5, K10), relative; and the whole
 # gradient, ||g_kernel - g_plain|| / ||g_plain|| (backward: K6a, K6b, K10's
@@ -2742,10 +2748,49 @@ def grad_gate(a, b, top):
         err.mean().item() / b.float().abs().mean().item()
 
 
+def k6_gate(got, want, name):
+    """K6_TOL[name] on (dq, dk, dv) -> (ok, {grad: (max |d| over the
+    largest, mean |d| over the mean, the largest)})."""
+    tol, reads = K6_TOL[name], {}
+    for tag, a, b in zip(("dq", "dk", "dv"), got, want):
+        top = b.float().abs().max().item()
+        reads[tag] = grad_gate(a, b, top) + (top,)
+    ok = all(rmax <= tol["max"] and rmean <= tol.get("mean", 1.0)
+             for rmax, rmean, _ in reads.values())
+    return ok, reads
+
+
+def k6_faults(torch, flash, got, args, ragged):
+    """The K6 check's planted fault, emulated from the plain version,
+    against the kernels' (dq, dk, dv) ``got`` on the causal ``args``: the
+    causal diagonal off by one (``_backward_reference`` at t0 + 1) or,
+    where the key lengths are ``ragged``, the last partial key tile
+    dropped (each length rounded down to the bf16 kernels' 128-key tile).
+    It must read beyond K6_TOL: the limit sits between rounding and the
+    design's likely errors. Raises if the gate would pass it."""
+    q, k, v, kvl, causal, t0, o, lse, do = args
+    if ragged:
+        name = "last partial key tile dropped"
+        want = flash._backward_reference(
+            q, k, v, torch.div(kvl, 128, rounding_mode="floor") * 128,
+            causal, t0, o, lse, do)
+    else:
+        name = "diagonal off by one"
+        want = flash._backward_reference(q, k, v, kvl, causal, t0 + 1, o,
+                                         lse, do)
+    ok, reads = k6_gate(got, want, "bfloat16")
+    print(f"  planted fault, {name}: " + ", ".join(
+        f"{tag} max|d| {rmax:.3e} mean {rmean:.3e}"
+        for tag, (rmax, rmean, _) in reads.items()) +
+        " (the gate must fail)", flush=True)
+    check(not ok, f"K6's check passes a planted fault: {name}")
+
+
 def phase_flash_bwd(torch, dev):
     """K6a/K6b at hala's (8, 12, 1024, 64) causal bf16 and fp32 at N=2,
-    against the plain backward on K5's o and lse; K5 with its lse at the
-    same shape."""
+    against the plain backward on K5's o and lse; in bf16 also at ragged
+    key lengths, with two planted faults (``k6_faults``); K5 with its lse
+    at the same shape."""
     import torch.nn.functional as F
     from haloop_tpu_torch.ops import flash, flash_cuda
     H, T, D = 12, 1024, 64
@@ -2763,25 +2808,42 @@ def phase_flash_bwd(torch, dev):
         args = (q, k, v, kvl, True, 0, o, lse, do)
         got = flash_cuda.flash_bwd_cuda(*args)
         torch.cuda.synchronize()
-        want = flash._backward_reference(*args)
-        tol, errs = K6_TOL[name], {}
-        for tag, a, b in zip(("dq", "dk", "dv"), got, want):
-            top = b.float().abs().max().item()
-            rmax, rmean = grad_gate(a, b, top)
-            errs[tag] = rmax * top
-            ok = rmax <= tol["max"] and rmean <= tol.get("mean", 1.0)
+        ok, reads = k6_gate(got, flash._backward_reference(*args), name)
+        errs = {tag: rmax * top for tag, (rmax, _, top) in reads.items()}
+        for tag, (rmax, rmean, top) in reads.items():
             print(f"K6 {tag} ({N}, {H}, {T}, {D}) causal {name}: max|d| "
                   f"{rmax:.3e} of the largest ({top:.3e}), mean|d| "
-                  f"{rmean:.3e} of the mean (tol {tol})", flush=True)
-            check(ok, f"K6 {tag} disagrees with _backward_reference at "
-                      f"{(N, H, T, D, name)}")
+                  f"{rmean:.3e} of the mean (tol {K6_TOL[name]})",
+                  flush=True)
+        check(ok, f"K6 disagrees with _backward_reference at "
+                  f"{(N, H, T, D, name)}")
         again = flash_cuda.flash_bwd_cuda(*args)
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
               "K6a/K6b are not deterministic")
-        del got, want, again
+        if name == "bfloat16":
+            k6_faults(torch, flash, got, args, ragged=False)
+            # ragged key lengths: the last partial key tiles
+            kvr = torch.tensor(K6_RAGGED, dtype=torch.int32, device=dev)
+            o_g, lse_g = flash_cuda.flash_fwd_cuda(q, k, v, kvr, True, 0,
+                                                   with_lse=True)
+            args_r = (q, k, v, kvr, True, 0, o_g, lse_g, do)
+            got_r = flash_cuda.flash_bwd_cuda(*args_r)
+            torch.cuda.synchronize()
+            ok, reads = k6_gate(got_r, flash._backward_reference(*args_r),
+                                name)
+            print(f"K6 ({N}, {H}, {T}, {D}) causal {name}, key lengths "
+                  f"{K6_RAGGED}: " + ", ".join(
+                      f"{tag} max|d| {rmax:.3e} mean {rmean:.3e}"
+                      for tag, (rmax, rmean, _) in reads.items()) +
+                  f" (tol {K6_TOL[name]})", flush=True)
+            check(ok, "K6 disagrees with _backward_reference at ragged key "
+                      "lengths")
+            k6_faults(torch, flash, got_r, args_r, ragged=True)
+            del got_r, o_g, lse_g, args_r
+        del got, again
         # K6a and K6b timed apart through the wrapper's private stages
         b = flash_cuda._bwd_args(*args)
-        flash_cuda._bwd_dq(b)                 # the delta that K6b reads
+        flash_cuda._bwd_dq(b)                 # the scratch that K6b reads
         dq_ms = cuda_ms(lambda: flash_cuda._bwd_dq(b))
         dkv_ms = cuda_ms(lambda: flash_cuda._bwd_dkv(b))
         plain_ms = cuda_ms(lambda: flash._backward_reference(*args))

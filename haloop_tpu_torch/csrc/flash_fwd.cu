@@ -630,11 +630,8 @@ cudaError_t run_bf16(const Dims& d, const void* q, const void* k,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  int dev, sms;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-    return err;
+  int sms;
+  if ((err = hl::sm_count(&sms)) != cudaSuccess) return err;
   const long long items = (long long)d.N * d.H * ((d.T + BM - 1) / BM);
   const int grid = (int)(items < sms ? items : sms);
   kern<<<grid, 384, smem, stream>>>(

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the warp-specialized kernels
-// (flash_fwd.cu today; the flash backward and the fused lm_head next):
-// wgmma with fp32 accumulators, its shared-memory matrix descriptors, the
-// mbarrier operations, TMA tile loads into an mbarrier, setmaxnreg, and
-// the host-side encoding of a TMA tensor map.
+// (flash_fwd.cu and flash_bwd.cu; the fused lm_head next): wgmma with fp32
+// accumulators, its shared-memory matrix descriptors, the mbarrier
+// operations, TMA tile loads into an mbarrier, setmaxnreg, and the
+// host-side encoding of TMA tensor maps (4-D bf16 tiles, 2-D fp32 rows).
 //
 // Shared-memory layouts, as TMA writes them with a swizzle and wgmma
 // reads them through a descriptor (R = a row's bytes, 128 for a bf16 row
@@ -14,7 +14,9 @@
 //     swizzle is a function of the address bits, so the tile must sit on
 //     a 1024-byte (128 B mode) or 512-byte (64 B mode) boundary.
 //   * MN-major B (V[c][d] as the k x n operand of P V, transpose bit
-//     set): the same rows, read with k along the rows. SBO is the stride
+//     set; in the backward K of dS K, and Q and dO of dS^T Q and P^T dO,
+//     tiles that are also read K-major): the same rows, read with k
+//     along the rows. SBO is the stride
 //     between 8-row groups along k (8 R); LBO would be the stride between
 //     atoms along n, of which a head (n = R / 2) has one. Both are set to
 //     8 R. A k16 step moves the start address by 16 R.
@@ -87,6 +89,32 @@ inline bool tile_map_bf16(CUtensorMap* map, const void* base, int D,
             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 2-D fp32 map over a (rows, cols) matrix whose rows are ``ld``
+// elements apart (ld a multiple of 4: TMA's 16-byte rule), box (box_cols,
+// box_rows), no swizzle. Columns past ``cols`` load as zeros. False if the
+// driver refuses the map.
+inline bool tile_map_f32(CUtensorMap* map, const void* base, int cols,
+                         int rows, long long ld, int box_cols, int box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base),
+            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the card's SM count, for persistent grids
+inline cudaError_t sm_count(int* sms) {
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
 }
 
 // ---------------------------------------------------------- device side
@@ -175,6 +203,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       : "memory");
 }
 
+// one box of a 2-D map at coordinates (c0, c1)
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 template <int R>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
@@ -241,6 +280,28 @@ __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+}
+
+// D (m64n64, fp32) += A (64 x 16, smem desc) . B (16 x 64, smem desc)
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
 }
 

@@ -56,10 +56,10 @@ _SIGNATURES = {
     # q, k, v, kv_lengths, seg, o, lse, dims (host int[17]), causal, t0,
     # bf16, stream
     "hl_flash_fwd": [_P] * 8 + [_I] * 3 + [_P],
-    # q, k, v, o, do, kv_lengths, lse, delta, dq, dims (host int[29]),
+    # q, k, v, o, do, kv_lengths, lse, scratch, dq, dims (host int[29]),
     # causal, t0, bf16, stream
     "hl_flash_bwd_dq": [_P] * 10 + [_I] * 3 + [_P],
-    # q, k, v, do, kv_lengths, lse, delta, dk, dv, dims (host int[29]),
+    # q, k, v, do, kv_lengths, lse, scratch, dk, dv, dims (host int[29]),
     # causal, t0, bf16, stream
     "hl_flash_bwd_dkv": [_P] * 10 + [_I] * 3 + [_P],
     # x, w, targets, nll, lse, partial, N, V, D, chunks, bf16, stream

@@ -1,9 +1,9 @@
 """Kernels K5, K6a/K6b and K7: flash attention in CUDA. The forward
 (``csrc/flash_fwd.cu``) with per-batch key lengths and causal offset
-(K5), or with per-token segment ids for packed rows (K7): in bf16 one
-warp-specialized Hopper kernel (wgmma fed by TMA through an mbarrier
-ring), in fp32 a CUDA-core one; the backward of K5
-(``csrc/flash_bwd.cu``): dq (K6a), then dk and dv (K6b).
+(K5), or with per-token segment ids for packed rows (K7), and the
+backward of K5 (``csrc/flash_bwd.cu``): dq (K6a), then dk and dv (K6b).
+In bf16 each is a warp-specialized Hopper kernel (wgmma fed by TMA
+through an mbarrier ring), in fp32 a CUDA-core one.
 
 Mirrors ``haloop_tpu.ops.flash.flash_attention`` and
 ``flash_attention_packed``:
@@ -27,7 +27,8 @@ output gradient's rows where autograd puts them (the GPT's is a
 head-split view of the c_proj input's gradient: no copy); only a
 gradient whose rows are not contiguous and 16-byte aligned (an expanded
 one, from ``o.sum()``) is copied first. delta = rowsum(do * o) is K6a's
-prologue, not a separate pass.
+prologue, not a separate pass; K6a writes it, with the lse in base 2,
+into a scratch that K6b reads (``_scratch``).
 """
 
 import ctypes
@@ -214,8 +215,8 @@ def flash_bwd_cuda(q, k, v, kv_lengths, causal, t0, o, lse, do):
 
 def _bwd_args(q, k, v, kv_lengths, causal, t0, o, lse, do):
     """The checks and the allocations of K6a/K6b -> their launch
-    arguments (``_bwd_dq``, then ``_bwd_dkv``, which reads the delta that
-    K6a writes)."""
+    arguments (``_bwd_dq``, then ``_bwd_dkv``, which reads the scratch
+    that K6a writes)."""
     if do.device == q.device and do.dtype == q.dtype and not _rows_ok(do):
         do = do.contiguous()           # an expanded or odd-strided grad
     _check("flash_attention backward", q, k, v, o, do)
@@ -235,33 +236,43 @@ def _bwd_args(q, k, v, kv_lengths, causal, t0, o, lse, do):
     if T == 0 or S == 0:
         for t in (dq, dk, dv):
             t.zero_()
-    delta = torch.empty((N, H, T), dtype=torch.float32, device=q.device)
     dims = [N, H, T, S, D] + _strides(q, k, v, o, do, dq, dk, dv)
     return SimpleNamespace(
         q=q, k=k, v=v, o=o, do=do, kv_lengths=kv_lengths, lse=lse,
-        delta=delta, dq=dq, dk=dk, dv=dv, causal=int(causal), t0=int(t0),
+        scratch=_scratch(N, H, T, q), dq=dq, dk=dk, dv=dv,
+        causal=int(causal), t0=int(t0),
         dims=(ctypes.c_int * len(dims))(*dims),
         bf16=int(q.dtype == torch.bfloat16), launch=N * H * T * S > 0)
 
 
+def _scratch(N, H, T, q):
+    """What K6a writes and K6b reads: in bf16 (N*H, 2, Tp) fp32, each
+    row's lse * log2(e) then delta = rowsum(do * o), Tp = T rounded up to
+    4 so that K6b's TMA map of it has 16-byte row strides; in fp32 delta
+    (N, H, T)."""
+    shape = (N * H, 2, -(-T // 4) * 4) if q.dtype == torch.bfloat16 else \
+        (N, H, T)
+    return torch.empty(shape, dtype=torch.float32, device=q.device)
+
+
 def _bwd_dq(b):
-    """K6a: b.dq, and b.delta for K6b."""
+    """K6a: b.dq, and b.scratch for K6b."""
     global bwd_dq_launches
     err = kernels.library().hl_flash_bwd_dq(
         b.q.data_ptr(), b.k.data_ptr(), b.v.data_ptr(), b.o.data_ptr(),
         b.do.data_ptr(), b.kv_lengths.data_ptr(), b.lse.data_ptr(),
-        b.delta.data_ptr(), b.dq.data_ptr(), b.dims, b.causal, b.t0, b.bf16,
-        kernels.stream_of(b.q))
+        b.scratch.data_ptr(), b.dq.data_ptr(), b.dims, b.causal, b.t0,
+        b.bf16, kernels.stream_of(b.q))
     kernels.check(err, "hl_flash_bwd_dq")
     bwd_dq_launches += 1
 
 
 def _bwd_dkv(b):
-    """K6b: b.dk and b.dv, reading the b.delta that K6a wrote."""
+    """K6b: b.dk and b.dv, reading the b.scratch that K6a wrote."""
     global bwd_dkv_launches
     err = kernels.library().hl_flash_bwd_dkv(
         b.q.data_ptr(), b.k.data_ptr(), b.v.data_ptr(), b.do.data_ptr(),
-        b.kv_lengths.data_ptr(), b.lse.data_ptr(), b.delta.data_ptr(),
+        b.kv_lengths.data_ptr(), b.lse.data_ptr(), b.scratch.data_ptr(),
         b.dk.data_ptr(), b.dv.data_ptr(), b.dims, b.causal, b.t0, b.bf16,
         kernels.stream_of(b.q))
     kernels.check(err, "hl_flash_bwd_dkv")

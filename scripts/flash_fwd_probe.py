@@ -1,25 +1,33 @@
 #!/usr/bin/env python3
-"""The bf16 flash attention forward of the PyTorch port (kernels K5, K5
-with its lse, and K7, ``haloop_tpu_torch/csrc/flash_fwd.cu``) alone on
-one GPU: its build, checks against the plain versions, and its times.
+"""The bf16 flash attention kernels of the PyTorch port alone on one GPU:
+the forward (K5, K5 with its lse, and K7,
+``haloop_tpu_torch/csrc/flash_fwd.cu``) and the backward (K6a dq, K6b dk
+and dv, ``csrc/flash_bwd.cu``): their build, checks against the plain
+versions, and their times.
 
     python3 scripts/flash_fwd_probe.py                # checks, then times
+    python3 scripts/flash_fwd_probe.py --backward     # the backward only
     python3 scripts/flash_fwd_probe.py --against DIR  # times and rates
         # only: the tree at DIR and this one in turns (DIR, this, this,
         # DIR), each in a process of its own, at the same shapes and inputs
     python3 scripts/flash_fwd_probe.py --tree DIR --times-only
         # one tree's times and rates as a JSON line (what --against runs)
 
+With ``--backward`` the checks and times are K6a's and K6b's alone and
+the rates hala's alone; ``--kernels-only`` leaves the rates out (to
+compare design variants quickly).
+
 DIR is another checkout of the repository (``git archive`` of a commit
 unpacked into a directory that .gitignore lists); each tree builds its
 own kernels into its own ``build/``. The shapes are ``chip_smoke.py``'s:
 K5 at hap --no-pack's (32, 12, 512, 64) causal with ragged key lengths,
 K5 with its lse at hala's (8, 12, 1024, 64), K7 at hap's packed (16, 12,
-1024, 64) with 64-token and with pack_segments' ragged segments. Times
-are CUDA events around one call behind a spin (``chip_smoke.cuda_ms``),
-median of 5, the card's name and power limit printed first. The rates
-are the hap and hala paths that run these kernels (``rates``). Needs one
-card; imports nothing of JAX.
+1024, 64) with 64-token and with pack_segments' ragged segments, K6a and
+K6b at hala's (8, 12, 1024, 64) causal. Times are CUDA events around one
+call behind a spin (``chip_smoke.cuda_ms``), median of 5, the card's name
+and power limit printed first. The rates are the hap and hala paths that
+run these kernels, and the device time of one hala update from
+torch.profiler (``rates``). Needs one card; imports nothing of JAX.
 """
 
 import argparse
@@ -101,18 +109,79 @@ def run_case(flash, flash_cuda, args, kind):
             lambda: flash._packed_reference(q, k, v, x, True))
 
 
-def times(tree):
+def k6_args(torch, cs, flash_cuda, N, H, T, S, D, kvl, causal, t0, seed,
+            views=True):
+    """The arguments of the backward as hala makes them: q, k, v views of
+    one projection (T == S) with K5's o and lse, and do a head-split view
+    of an (N, T, H D) gradient."""
+    dev = torch.device("cuda", 0)
+    if views and T == S:
+        q, k, v = cs.qkv_views(torch, dev, N, H, T, D, torch.bfloat16, seed)
+    else:
+        g = torch.Generator().manual_seed(seed)
+        q, k, v = (torch.randn(shape, generator=g).to(dev, torch.bfloat16)
+                   for shape in ((N, H, T, D), (N, H, S, D), (N, H, S, D)))
+    kvl = torch.as_tensor(kvl, dtype=torch.int32).to(dev)
+    o, lse = flash_cuda.flash_fwd_cuda(q, k, v, kvl, causal, t0,
+                                       with_lse=True)
+    g = torch.Generator().manual_seed(seed + 1)
+    do = torch.randn((N, T, H * D), generator=g).to(dev, torch.bfloat16) \
+        .reshape(N, T, H, D).transpose(1, 2)
+    return q, k, v, kvl, causal, t0, o, lse, do
+
+
+def times(tree, backward_only=False):
     import torch
     cs, kernels, flash, flash_cuda, pack_segments = load(tree)
     kernels.library()
     res = {}
-    for label, args, kind in cases(torch, cs, pack_segments):
-        kern, _ = run_case(flash, flash_cuda, args, kind)
-        res[label] = cs.cuda_ms(kern)
+    if not backward_only:
+        for label, args, kind in cases(torch, cs, pack_segments):
+            kern, _ = run_case(flash, flash_cuda, args, kind)
+            res[label] = cs.cuda_ms(kern)
+    b = flash_cuda._bwd_args(*k6_args(torch, cs, flash_cuda, 8, 12, 1024,
+                                      1024, 64, [1024] * 8, True, 0, 21))
+    flash_cuda._bwd_dq(b)                  # the scratch that K6b reads
+    res["K6a (8, 12, 1024, 64) causal"] = cs.cuda_ms(
+        lambda: flash_cuda._bwd_dq(b))
+    res["K6b (8, 12, 1024, 64) causal"] = cs.cuda_ms(
+        lambda: flash_cuda._bwd_dkv(b))
     return res
 
 
-def rates(tree):
+def device_ms(torch, fn):
+    """The device's busy time in one call of ``fn`` (the union of its
+    kernels' spans), from torch.profiler after a traced warm-up call, as
+    ``chip_smoke.profile_step`` reads it."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = []
+
+    def keep(p):
+        spans.extend((e.start_ns(), e.end_ns())
+                     for e in p.profiler.kineto_results.events()
+                     if e.device_type() == cuda and
+                     not e.is_user_annotation())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=keep) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    busy, end = 0, None
+    for s, e in sorted(spans):
+        if end is None or s >= end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return busy / 1e6
+
+
+def rates(tree, backward_only=False):
     """The paths K5 and K7 serve, at GPT-2 small's widths (``decoder``,
     random weights from seed 0, no checkpoint written): hap --no-pack's
     32 x 512 and hap's packed 16 x 1024 (64-token segments) real tokens/s,
@@ -146,7 +215,7 @@ def rates(tree):
             torch.from_numpy(a).to(dev) for a in (np.concatenate(
                 [np.full((32, 1), 50256, np.int32), x[:, :-1]], 1), x)]}
     out = {}
-    for label, b in batches.items():
+    for label, b in ({} if backward_only else batches).items():
         kw = {} if len(b) == 2 else dict(positions=b[2], segment_ids=b[3])
 
         @torch.inference_mode()
@@ -161,10 +230,82 @@ def rates(tree):
     Y = TAL.lm_targets(X)
     ms, _ = cs.host_ms(torch, lambda: step(X, Y), reps=7)
     out["hala 8 x 1024 train tokens/s"] = X.numel() / ms * 1e3
+    out["hala 8 x 1024 update device ms"] = device_ms(torch,
+                                                      lambda: step(X, Y))
     return out
 
 
-def checks(tree):
+def checks_backward(torch, cs, flash, flash_cuda):
+    """K6a and K6b: dV = P^T dO and dQ = dS K alone (q = 0, lse = 0, o =
+    0: p = 1, ds = dp), then K5's o and lse at tile edges (T at 1, and T,
+    S at 70, 127, 128, 129, 300; t0 up to 126; key lengths full, mid-tile
+    and 0; D 64 and 32) and hala's shape, full and ragged key lengths, within
+    ``chip_smoke.K6_TOL``; the same bits twice. -> labels that failed."""
+    dev = torch.device("cuda", 0)
+    tol = cs.K6_TOL["bfloat16"]
+    bad = []
+
+    def report(label, args):
+        got = flash_cuda.flash_bwd_cuda(*args)
+        torch.cuda.synchronize()
+        want = flash._backward_reference(*args)
+        worst = []
+        for tag, a, b in zip(("dq", "dk", "dv"), got, want):
+            top = b.float().abs().max().item()
+            if top == 0:                 # dk with q = 0: exactly zero
+                ok = not a.float().abs().max().item()
+                worst.append(f"{tag} all zero {ok}")
+            else:
+                rmax, rmean = cs.grad_gate(a, b, top)
+                ok = rmax <= tol["max"] and rmean <= tol["mean"]
+                worst.append(f"{tag} {rmax:.2e}/{rmean:.2e}")
+            if not ok:
+                bad.append(f"{label} {tag}")
+        again = flash_cuda.flash_bwd_cuda(*args)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        if not same:
+            bad.append(f"{label} not the same bits twice")
+        ok = not any(x.startswith(label) for x in bad)
+        print(f"{'ok ' if ok else 'BAD'} K6 {label}: max/mean of the "
+              f"largest/mean {', '.join(worst)}; same bits twice {same}",
+              flush=True)
+
+    g = torch.Generator().manual_seed(5)
+    for D in (64, 32):
+        for causal in (False, True):
+            N, H, T = 2, 2, 256
+            k, v, do = (torch.randn((N, H, T, D), generator=g).to(
+                dev, torch.bfloat16) for _ in range(3))
+            q = torch.zeros_like(k)
+            o = torch.zeros_like(k)
+            lse = torch.zeros((N, H, T), device=dev)
+            kvl = torch.tensor([T, 200], dtype=torch.int32, device=dev)
+            report(f"p = 1 (q, lse, o = 0) D={D} causal={causal}",
+                   (q, k, v, kvl, causal, 0, o, lse, do))
+    for D in (64, 32):
+        # no row with a single live key: there p = 1 and ds = dp - delta
+        # = 0 in exact arithmetic, and dq, dk are rounding noise on both
+        # sides (T = 1 causal needs t0 > 0)
+        for T, S, causal, t0 in ((1, 129, False, 0), (70, 70, True, 0),
+                                 (127, 127, True, 0), (128, 128, False, 0),
+                                 (129, 129, True, 0), (300, 300, True, 0),
+                                 (70, 300, True, 126), (129, 300, True, 7),
+                                 (129, 300, True, 65), (300, 129, False, 0),
+                                 (1, 300, True, 126), (300, 70, True, 0)):
+            kvl = [S, max(S // 2 + 1, 1), 0]
+            report(f"T={T} S={S} causal={causal} t0={t0} D={D}",
+                   k6_args(torch, cs, flash_cuda, 3, 2, T, S, D, kvl,
+                           causal, t0, T + S + D, views=False))
+    report("hala (8, 12, 1024, 64) causal",
+           k6_args(torch, cs, flash_cuda, 8, 12, 1024, 1024, 64,
+                   [1024] * 8, True, 0, 21))
+    report("hala (8, 12, 1024, 64) causal, ragged key lengths",
+           k6_args(torch, cs, flash_cuda, 8, 12, 1024, 1024, 64,
+                   cs.K6_RAGGED, True, 0, 23))
+    return bad
+
+
+def checks(tree, backward_only=False):
     """Each piece of the design on its own input, then the main path's
     shapes and tile edges against the plain versions."""
     import torch
@@ -173,9 +314,11 @@ def checks(tree):
     print(f"build {kernels.build_seconds} s", flush=True)
     for line in ptxas_lines(kernels.build_log):
         print("ptxas:", line, flush=True)
+    bad = checks_backward(torch, cs, flash, flash_cuda)
+    if backward_only:
+        return bad
     dev = torch.device("cuda", 0)
     tol = cs.ATTN_TOL["bfloat16"]
-    bad = []
 
     def report(label, got, want):
         ok, err, mean = cs.within(torch, got, want, tol)
@@ -248,6 +391,10 @@ def main():
     ap.add_argument("--tree", type=Path, default=HERE)
     ap.add_argument("--times-only", action="store_true")
     ap.add_argument("--against", type=Path)
+    ap.add_argument("--backward", action="store_true",
+                    help="check and time K6a and K6b only")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="with --against or --times-only: no rates")
     a = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -256,14 +403,20 @@ def main():
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     if a.times_only:
-        print(json.dumps(dict(times(a.tree), **rates(a.tree))), flush=True)
+        res = times(a.tree, a.backward)
+        if not a.kernels_only:
+            res.update(rates(a.tree, a.backward))
+        print(json.dumps(res), flush=True)
         return
     print(card, flush=True)
     if a.against:
         runs = []
         for tree in (a.against, a.tree, a.tree, a.against):
+            flags = [f for f, on in (("--backward", a.backward),
+                                     ("--kernels-only", a.kernels_only))
+                     if on]
             r = subprocess.run([sys.executable, __file__, "--tree",
-                                str(tree), "--times-only"],
+                                str(tree), "--times-only", *flags],
                                capture_output=True, text=True)
             if r.returncode:
                 raise SystemExit(f"{tree}: exit {r.returncode}\n{r.stderr}")
@@ -276,8 +429,8 @@ def main():
         print(json.dumps({"card": card, "runs": [
             {"tree": str(t), "ms": res} for t, res in runs]}), flush=True)
         return
-    bad = checks(a.tree)
-    for label, ms in times(a.tree).items():
+    bad = checks(a.tree, a.backward)
+    for label, ms in times(a.tree, a.backward).items():
         print(f"{label}: {ms:.4f} ms", flush=True)
     if bad:
         raise SystemExit(f"disagree with the plain versions: {bad}")

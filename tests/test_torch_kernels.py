@@ -900,6 +900,16 @@ K6_CASES = [
     (2, 2, 160, 288, True, 5, 64),       # T != S, t0 > 0
     (3, 4, 70, 70, True, 0, 32),         # gpt-nano's head width
     (2, 3, 100, 140, True, 7, 32),
+    # tile edges of the bf16 kernels (128-row items, K6b's 64-row query
+    # tiles): one query row; 127 and 129; T = 70, whose lse and delta
+    # rows are not 16-byte multiples (the scratch pads them to 72); t0 =
+    # 126, and 65, where the diagonal meets a tile's last row exactly
+    (2, 2, 1, 300, True, 126, 64),
+    (2, 2, 127, 127, True, 0, 64),
+    (2, 2, 129, 129, True, 0, 32),
+    (2, 3, 70, 300, True, 126, 32),
+    (2, 2, 129, 300, True, 65, 64),
+    (2, 2, 300, 129, False, 0, 64),
 ]
 
 
@@ -986,6 +996,67 @@ def test_flash_bwd_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="head_dim"):
         flash_cuda.flash_bwd_cuda(q48, q48, q48, kvl, True, 0, q48, lse,
                                   q48)
+    # o and do whose strides TMA cannot take (bf16: a row stride that is
+    # not a multiple of 16 bytes, a byte stride of 2^40 or more): o is
+    # refused before any launch; such a do, like autograd's expanded
+    # gradient of o.sum(), is copied first and gives the same bits
+    N, H, T, D = 2, 2, 64, 64
+    q, k, v = _qkv(cuda, N, H, T, T, D, torch.bfloat16, seed=9)
+    kvl = torch.full((N,), T, dtype=torch.int32, device=cuda)
+    o, lse = flash_cuda.flash_fwd_cuda(q, k, v, kvl, True, 0, with_lse=True)
+    g = torch.Generator().manual_seed(3)
+    do = torch.randn((N, H, T, D), generator=g).to(cuda, torch.bfloat16)
+    wide = torch.zeros((N, T, H * D + 4), dtype=torch.bfloat16, device=cuda)
+    odd_o = wide[..., :H * D].unflatten(-1, (H, D)).transpose(1, 2)
+    odd_o.copy_(o)
+    far = torch.zeros((H, T, D), dtype=torch.bfloat16, device=cuda) \
+        .as_strided((1, H, T, D), (1 << 39, T * D, D, 1))
+    before = flash_cuda.bwd_dq_launches, flash_cuda.bwd_dkv_launches
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_cuda.flash_bwd_cuda(q, k, v, kvl, True, 0, odd_o, lse, do)
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_cuda.flash_bwd_cuda(q[:1], k[:1], v[:1], kvl[:1], True, 0,
+                                  far, lse[:1], do[:1])
+    assert (flash_cuda.bwd_dq_launches, flash_cuda.bwd_dkv_launches) == \
+        before
+    want = flash_cuda.flash_bwd_cuda(q, k, v, kvl, True, 0, o, lse, do)
+    odd_do = torch.zeros_like(wide)[..., :H * D].unflatten(
+        -1, (H, D)).transpose(1, 2)
+    odd_do.copy_(do)
+    assert not flash_cuda._rows_ok(odd_do)
+    got = flash_cuda.flash_bwd_cuda(q, k, v, kvl, True, 0, o, lse, odd_do)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_flash_bwd_reads_the_fused_projection_in_place(cuda):
+    """q, k, v as the GPT makes them, strided views of one (N, T, 3 H D)
+    projection, and do a head-split view of an (N, T, H D) gradient: the
+    bf16 kernels read them where they lie (their TMA maps take the views'
+    strides), so the backward allocates dq, dk, dv and the (N*H, 2, Tp)
+    scratch of lse and delta, and nothing else."""
+    N, H, T, D = 4, 12, 250, 64
+    q, k, v = _qkv(cuda, N, H, T, T, D, torch.bfloat16, seed=7, fused=True)
+    kvl = torch.full((N,), T, dtype=torch.int32, device=cuda)
+    o, lse = flash_cuda.flash_fwd_cuda(q, k, v, kvl, True, 0, with_lse=True)
+    g = torch.Generator().manual_seed(8)
+    do = torch.randn((N, T, H * D), generator=g).to(cuda, torch.bfloat16) \
+        .reshape(N, T, H, D).transpose(1, 2)
+    assert not q.is_contiguous() and not do.is_contiguous()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = flash_cuda.flash_bwd_cuda(q, k, v, kvl, True, 0, o, lse, do)
+    torch.cuda.synchronize()
+
+    def blocks(nbytes):
+        return -(-nbytes // 512) * 512
+    grads = sum(blocks(t.numel() * t.element_size()) for t in got)
+    scratch = blocks(N * H * 2 * (-(-T // 4) * 4) * 4)
+    assert torch.cuda.max_memory_allocated() - base <= grads + scratch
+    want = flash._backward_reference(q, k, v, kvl, True, 0, o, lse, do)
+    for a, b in zip(got, want):
+        _close_grad(a, b, torch.bfloat16)
 
 
 @pytest.mark.cuda
