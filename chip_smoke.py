@@ -429,6 +429,76 @@ def within(torch, got, want, tol):
         err.mean().item()
 
 
+def lstm_plan(torch, dev, kind, H, dtype):
+    """(route, plan) of K1 ("fwd") or K2 ("bwd") at width H on this card
+    (``nn.lstm_cuda.route`` with what ``hl_lstm_card`` reports)."""
+    from haloop_tpu_torch.nn import lstm_cuda
+    sms, smem, ncl = lstm_cuda.card(dev)
+    return lstm_cuda.route(kind, dtype, H, 0, sms, smem, ncl[kind])
+
+
+def fault_units(torch, dev, kind, H):
+    """The hidden units of one block (K1) or of one cluster (K2) of the
+    persistent kernel at width H: the second cluster's first block, or the
+    second cluster."""
+    _, plan = lstm_plan(torch, dev, kind, H, torch.bfloat16)
+    cu = plan.c * plan.u
+    first = min(cu, H - plan.u)
+    return torch.arange(first, min(first + (plan.u if kind == "fwd" else cu),
+                                   H), device=dev)
+
+
+def k1_stale_h(torch, w, xp, h0, c0, units):
+    """A planted fault: plain K1 (nn.lstm.lstm_scan) with the gates of
+    ``units`` computed from h_{t-2} (h0 at t = 1) from the third step on,
+    what one block that passes a missing or early grid barrier computes.
+    Returns ys."""
+    T, B, H4 = xp.shape
+    H = H4 // 4
+    rows = torch.cat([g * H + units for g in range(4)])
+    wf = w.float()
+    c = c0.float()
+    hs = [h0.to(w.dtype).float()]            # h_{t-1} in W's dtype
+    ys = torch.empty((T, B, H), dtype=xp.dtype, device=xp.device)
+    for t in range(T):
+        rec = hs[t] @ wf.T
+        if t >= 2:
+            rec[:, rows] = hs[t - 1] @ wf[rows].T
+        i, f, g, o = (xp[t].float() + rec).chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        ys[t] = (torch.sigmoid(o) * torch.tanh(c)).to(xp.dtype)
+        hs.append(ys[t].float())
+    return ys
+
+
+def k2_stale_share(torch, dys, acts, c_prev, cs, w, dh_last, dc_last, units):
+    """A planted fault: plain K2 (nn.lstm.lstm_scan_bwd) with the recurrent
+    product of ``units`` (one cluster's) taken from the dgates of the step
+    before the right one (dgates[t+2] where dh_t needs dgates[t+1]), what
+    a cluster that reads its share of dgates before the grid barrier
+    computes. Returns dgates."""
+    T, B, H4 = acts.shape
+    dh = dh_last.to(acts.dtype).float()
+    dc = dc_last.to(acts.dtype).float()
+    dgates = torch.empty_like(acts)
+    wf = w.float()
+    for t in range(T - 1, -1, -1):
+        i, f, g, o = acts[t].float().chunk(4, dim=-1)
+        tc = torch.tanh(cs[t].float())
+        dh = dh + dys[t].float()
+        do = dh * tc * o * (1 - o)
+        dc = dc + dh * o * (1 - tc * tc)
+        d = torch.cat([dc * g * i * (1 - i),
+                       dc * c_prev[t].float() * f * (1 - f),
+                       dc * i * (1 - g * g), do], dim=-1)
+        dgates[t] = d.to(acts.dtype)
+        dh = dgates[t].float() @ wf
+        if t + 1 < T:
+            dh[:, units] = dgates[t + 1].float() @ wf[:, units]
+        dc = dc * f
+    return dgates
+
+
 # (T, B, H, dtype, timed): the main paths' shapes are timed, lstm:512's
 # first (its numbers stand in the kernels line, the others under by_shape)
 LSTM_SHAPES = ((385, 48, 1536, "bfloat16", True), (7, 5, 40, "float32", False),
@@ -446,11 +516,34 @@ def by_shape(reports):
 def phase_lstm(torch, dev):
     from haloop_tpu_torch.nn import lstm, lstm_cuda
     reports = {}
+    sms, smem, ncl = lstm_cuda.card(dev)
+    print(f"K1/K2 persistent kernels: {sms} SMs, {smem} B of shared memory "
+          f"a block; resident at once " + ", ".join(
+              f"{ncl[k]} clusters of {lstm_cuda.CLUSTERS[k]} ({k})"
+              for k in ("fwd", "bwd")) +
+          "; cooperative cluster launches accepted", flush=True)
     for T, B, H, name, timed in LSTM_SHAPES:
         dtype = getattr(torch, name)
         w, xp, h0, c0 = lstm_inputs(torch, dev, T, B, H, dtype)
+        route, plan = lstm_plan(torch, dev, "fwd", H, dtype)
+        before = dict(lstm_cuda.route_launches)
         ys, h, c = lstm_cuda.lstm_fwd_cuda(w, xp, h0, c0)
+        again = lstm_cuda.lstm_fwd_cuda(w, xp, h0, c0)
         torch.cuda.synchronize()
+        took = {k: v - before[k] for k, v in lstm_cuda.route_launches.items()
+                if v != before[k]}
+        same = all(torch.equal(a, b) for a, b in zip((ys, h, c), again))
+        grid = (f"grid {plan.blocks} blocks = {plan.clusters} clusters of "
+                f"{plan.c}, {plan.u} units a block, {plan.stages}-slot ring, "
+                f"{plan.smem} B" if plan else "one launch a step")
+        print(f"K1 lstm T={T} B={B} H={H} {name}: route {route} ({grid}); "
+              f"launches by route {took}; the same bits twice {same}",
+              flush=True)
+        check(took == {f"fwd_{route}": 2}, f"K1 took {took}, not {route}")
+        check(same, f"K1 gave other bits on a second run at {(T, B, H)}")
+        check(route == "persist" or H not in (1536, 1024, 512),
+              f"K1 at the main paths' width {H} did not take the "
+              f"persistent kernel")
         ye, he, ce = lstm.lstm_scan(w, xp, h0, c0)
         tol = LSTM_TOL[name]
         ok, max_err, mean_err = within(torch, ys, ye, tol)
@@ -462,6 +555,16 @@ def phase_lstm(torch, dev):
         check(ok, f"K1 disagrees with lstm_scan at {(T, B, H, name)}")
         check(bool(((h - he).abs() <= tol["atol"] + tol["rtol"] * he.abs())
                    .all()), f"K1 last h/c disagree at {(T, B, H, name)}")
+        if (T, B, H) == LSTM_SHAPES[0][:3]:
+            # one block's units on h_{t-2}: the missing grid barrier
+            units = fault_units(torch, dev, "fwd", H)
+            bad = k1_stale_h(torch, w, xp, h0, c0, units)
+            ok_f, err_f, mean_f = within(torch, ys, bad, tol)
+            print(f"K1 planted fault (units {int(units[0])}..{int(units[-1])}"
+                  f" read h_(t-2)): max|dys|={err_f:.3e} mean "
+                  f"{mean_f:.3e}, beyond the tolerance {not ok_f}",
+                  flush=True)
+            check(not ok_f, "the stale-h fault reads within LSTM_TOL")
         if timed:               # a main path's shape
             ms = cuda_ms(lambda: lstm_cuda.lstm_fwd_cuda(w, xp, h0, c0))
             plain_ms = cuda_ms(lambda: lstm.lstm_scan(w, xp, h0, c0))
@@ -557,10 +660,15 @@ def phase_lstm_train(torch, dev):
         ys, h, c, acts, cs = lstm_cuda.lstm_fwd_cuda(w, xp, h0, c0,
                                                      residuals=True)
         ys0, h_0, c_0 = lstm_cuda.lstm_fwd_cuda(w, xp, h0, c0)
+        again = lstm_cuda.lstm_fwd_cuda(w, xp, h0, c0, residuals=True)
         torch.cuda.synchronize()
         check(torch.equal(ys, ys0) and torch.equal(h, h_0) and
               torch.equal(c, c_0),
               f"K1 with residuals changes ys/h/c at {(T, B, H, name)}")
+        check(all(torch.equal(a, b)
+                  for a, b in zip((ys, h, c, acts, cs), again)),
+              f"K1 with residuals gave other bits on a second run at "
+              f"{(T, B, H, name)}")
         _, _, _, acts_e, cs_e = lstm.lstm_scan(w, xp, h0, c0,
                                                residuals=True)
         ok_a, err_a, _ = within(torch, acts, acts_e, tol)
@@ -577,9 +685,26 @@ def phase_lstm_train(torch, dev):
         dc = torch.randn((B, H), generator=g).to(dev) * 0.1
         c0r = c0.to(acts.dtype)
         c_prev = torch.cat([c0r[None], cs_e[:-1]])
+        route, plan = lstm_plan(torch, dev, "bwd", H, dtype)
+        before = dict(lstm_cuda.route_launches)
         dg, dh0, dc0 = lstm_cuda.lstm_bwd_cuda(dys, acts_e, cs_e, c0r, w, dh,
                                                dc)
+        again = lstm_cuda.lstm_bwd_cuda(dys, acts_e, cs_e, c0r, w, dh, dc)
         torch.cuda.synchronize()
+        took = {k: v - before[k] for k, v in lstm_cuda.route_launches.items()
+                if v != before[k]}
+        same = all(torch.equal(a, b) for a, b in zip((dg, dh0, dc0), again))
+        grid = (f"grid {plan.blocks} blocks = {plan.clusters} clusters of "
+                f"{plan.c}, {plan.u} units a block, {plan.stages}-slot ring, "
+                f"{plan.smem} B" if plan else "one launch a step")
+        print(f"K2 lstm_bwd T={T} B={B} H={H} {name}: route {route} "
+              f"({grid}); launches by route {took}; K1 with residuals and "
+              f"K2 the same bits twice {same}", flush=True)
+        check(took == {f"bwd_{route}": 2}, f"K2 took {took}, not {route}")
+        check(same, f"K2 gave other bits on a second run at {(T, B, H)}")
+        check(route == "persist" or H not in (1536, 1024, 512),
+              f"K2 at the main paths' width {H} did not take the "
+              f"persistent kernel")
         dg_e, dh0_e, dc0_e = lstm.lstm_scan_bwd(dys, acts_e, c_prev, cs_e, w,
                                                 dh, dc)
         ok_g, err_g, mean_g = within(torch, dg, dg_e, tol)
@@ -599,6 +724,22 @@ def phase_lstm_train(torch, dev):
               flush=True)
         check(ok_g and ok_h and ok_cc and cos > DW_COS,
               f"K2 disagrees with lstm_scan_bwd at {(T, B, H, name)}")
+        if (T, B, H) == LSTM_SHAPES[0][:3]:
+            # one cluster's share of dgates from the step before the right
+            # one: its blocks read dgates ahead of the grid barrier
+            units = fault_units(torch, dev, "bwd", H)
+            bad = k2_stale_share(torch, dys, acts_e, c_prev, cs_e, w, dh, dc,
+                                 units)
+            ok_f, err_f, mean_f = within(torch, dg, bad, tol)
+            dw_f = lstm.lstm_scan_dw(bad, h0, ys).float().flatten()
+            cos_f = (dw @ dw_f / (dw.norm() * dw_f.norm())).item()
+            print(f"K2 planted fault (units {int(units[0])}.."
+                  f"{int(units[-1])} from a step-old dgates): "
+                  f"max|ddgates|={err_f:.3e} mean {mean_f:.3e}, "
+                  f"cos(dW_hh)={cos_f:.7f}; beyond LSTM_TOL {not ok_f}, "
+                  f"beyond DW_COS {cos_f <= DW_COS}", flush=True)
+            check(not ok_f and cos_f <= DW_COS,
+                  "the stale-dgates fault reads within LSTM_TOL or DW_COS")
         if not timed:
             continue
         # a main path's shape: times
@@ -856,8 +997,21 @@ def counts():
 
 
 def reset_counts():
+    from haloop_tpu_torch.nn import lstm_cuda
     for mod, attr in _counters().values():
         setattr(mod, attr, 0)
+    for key in lstm_cuda.route_launches:
+        lstm_cuda.route_launches[key] = 0
+
+
+def check_persistent(path):
+    """Every K1 and K2 call since reset_counts took the persistent
+    kernels (the main paths' widths, 1536, 1024 and 512, in bf16)."""
+    from haloop_tpu_torch.nn import lstm_cuda
+    taken = {k: v for k, v in lstm_cuda.route_launches.items() if v}
+    print(f"{path}: K1/K2 launches by route {taken}", flush=True)
+    check(taken and all(k.endswith("_persist") for k in taken),
+          f"{path}: K1/K2 did not all take the persistent kernels: {taken}")
 
 
 def check_counts(path, launches, expect):
@@ -921,6 +1075,7 @@ def phase_slice(torch, dev, tmp, card):
           f"the serving slice did not run through K1 and K3: {launches}")
     check_counts("serving slice", launches,
                  {k: launches[k] for k in ("lstm_fwd", "ctc_fwd")})
+    check_persistent("serving slice")
 
     # 3. four TSV rows per utterance
     rows = tsv_rows(out.getvalue())
@@ -953,9 +1108,10 @@ def phase_slice(torch, dev, tmp, card):
             out = system._decode_impl(feats, feat_lens, train=False)
             return [t.cpu() for t in out]
         sec, _ = host_ms(torch, step)
-    print(f"slice eval forward+decode, 48 x 12 s utterances: "
-          f"{48 / sec * 1e3:.2f} utt/s ({sec:.3f} ms per batch, median of "
-          f"5) on {card}", flush=True)
+        print(f"slice eval forward+decode, 48 x 12 s utterances: "
+              f"{48 / sec * 1e3:.2f} utt/s ({sec:.3f} ms per batch, median "
+              f"of 5) on {card}", flush=True)
+        profile_step(torch, step, "one serving batch")
     return launches
 
 
@@ -1056,6 +1212,7 @@ def phase_train(torch, dev, tmp, card):
                  "ctc_bwd"):
         check(launches[name] > 0,
               f"the training slice did not launch {name}: {launches}")
+    check_persistent("training slice")
     saved = [line for line in out.getvalue().splitlines()
              if line.startswith("saving checkpoint to")]
     check((exp / "last.pt").exists() and (exp / "best.pt").exists() and
@@ -1358,6 +1515,7 @@ def phase_transducer(torch, dev, card):
     check_counts("transducer train step", train,
                  dict(lstm_fwd_residual=5, lstm_bwd=5, joint_lse=1,
                       joint_lse_bwd=1))
+    check_persistent("transducer train step")
 
     def transcribe():
         _, feats, feat_lens, _ = system._forward_impl(*batch, train=False)
@@ -1374,6 +1532,7 @@ def phase_transducer(torch, dev, card):
           f"{serve}; hyp lengths {lens.tolist()}", flush=True)
     check_counts("transducer transcription", serve,
                  dict(lstm_fwd=5, joint_lse=1))
+    check_persistent("transducer transcription")
     check(ali is None and hyps.shape == (B, max_steps) and
           bool(((lens >= 0) & (lens <= max_steps)).all()) and
           bool(torch.isfinite(scores).all() & torch.isfinite(ents).all()),
@@ -1436,6 +1595,7 @@ def phase_star_train(torch, dev, card):
     check_counts("Star-CTC train step", launches,
                  dict(lstm_fwd_residual=3, lstm_bwd=3, star_fwd_history=1,
                       star_bwd=1))
+    check_persistent("Star-CTC train step")
     check_against_plain(torch, system, batch, "Star-CTC train step")
 
     def step():

@@ -18,37 +18,52 @@
 // dgates: the residual dtype is W's dtype on both kernel paths) and sums
 // in fp32, as the TPU kernel's dot_general does; dh and dc are fp32.
 //
-// What bounds it on the H100: the same as the forward kernel
-// (lstm_fwd.cu). Every step reads all of W (4H x H) and the whole
-// previous dgates row (B x 4H) and the steps are strictly sequential; at
-// (T, B, H) = (385, 48, 1536) bf16 the work is 0.35 TFLOP (0.35 ms of
-// tensor-core time), the bytes ~0.6 GB (0.18 ms of HBM), but each step
-// is a 0.9 GFLOP product of depth 4H = 6144 spread over only H/16 = 96
-// blocks, so a step is bound by L2 streaming and the fixed launch cost.
+// What bounds it on the H100: as for the forward (lstm_fwd.cu), the steps
+// are strictly sequential and each is a small product (0.9 GFLOP at
+// (385, 48, 1536), ~1 us of tensor-core time; 0.36 ms over the call);
+// W (4H x H) fits the SMs together but no one SM. Here the exchange is
+// larger: step t's product needs all of dgates[t+1] (B x 4H bf16, 590 KB
+// at lstm:512), four times h, so if every block read all of it the grid
+// would read 75 MB of L2 a step, what the per-step design read with W.
 //
-// This design: one launch per time step, in reverse, on the caller's
-// stream (the dependence of step t on all of dgates[t+1] crosses every
-// block); dc lives in an fp32 (B, H) buffer updated in place. The
-// wrapper passes W^T (H, 4H), transposed once per call, so a block that
-// owns JU hidden units streams JU contiguous rows. A block computes its
-// units' dh for BM batch rows and then their elementwise delta, so the
-// cell update needs no cross-block reduction. Each thread loads its
-// cells' residuals before the product loop so their latency hides behind
-// it. One more product-only launch forms dh0.
-//  * bf16 with H % 8 == 0 (the hac path): tensor cores (WMMA 16x16x16,
-//    fp32 accumulators), dgates[t+1] and W^T streamed through shared
-//    memory in 128-wide K slices by a 4-stage cp.async pipeline; 16 units
-//    x 64 batch rows per block, 4 warps (one m-tile each).
-//  * fp32, or H % 8 != 0: CUDA-core FMAs in fp32; each thread owns one
-//    unit for 4 batch rows and reads 32-wide k-major slices from shared
-//    memory, fetching the next slice into registers meanwhile.
-// Later perf_opt: split K across warps or a cluster to feed more SMs, or
-// a persistent kernel with W resident in shared memory across the SMs
-// and a grid-wide barrier per step.
+// This design (bf16, H % 8 == 0, W slices that fit: every hac width;
+// persist_step below, built from persist.cuh): one persistent launch a
+// layer call, one block an SM, launched cooperatively in clusters of 8.
+// The wrapper passes W^T (H, 4H), transposed once a call. Cluster q owns
+// 8u consecutive hidden units; block r of it keeps columns [r kc,
+// (r + 1) kc) of their rows of W^T resident in shared memory (u = 14, 14
+// clusters, 172 KB a block at H=1536; the card holds 15 clusters of 8 at
+// once), i.e. it takes an eighth of the 4H-deep contraction. Step t
+// (t = T-1 down to 0): each block loads its cells' residuals (acts[t],
+// cs[t], c_prev, dys[t]) and dc ahead; waits at the grid barrier for
+// dgates[t+1]; multiplies its eighth of dgates[t+1]'s columns (streamed
+// through L2 by cp.async.cg, an mbarrier ring of 64-wide slices) by its
+// slab on tensor cores (mma.sync m16n8k16, fp32 sums); after a cluster
+// barrier sums its own u units' dh_rec over the eight blocks' partials
+// through distributed shared memory in a fixed order (rank 0..7); forms
+// the elementwise delta in registers, writes its units' dgates[t] and dc,
+// and arrives at the grid barrier. So each block reads an eighth of
+// dgates a step (8.3 MB of L2 for the grid, not 75), no sum depends on
+// timing (two runs give the same bits), and dh0 = dgates[0] . W is one
+// more product in the same launch. The grid barrier is a counter word the
+// wrapper zeroes (release/acquire at gpu scope; its spin traps after tens
+// of seconds). At a batch over 48 rows a step loops over 48-row tiles.
+// Other routes, chosen by the wrapper before the launch (nn/lstm_cuda.py
+// route), one launch a step and one more for dh0, a block owning 16 units
+// for 64 batch rows:
+//  * bf16 whose W slices do not fit (H above ~1,600 on an H100): tc_step,
+//    tensor cores (WMMA 16x16x16, fp32 accumulators), dgates[t+1] and W^T
+//    streamed through shared memory in 128-wide K slices by a 4-stage
+//    cp.async pipeline, 4 warps.
+//  * fp32 (parity runs), or H % 8 != 0: fma_step, CUDA-core FMAs in fp32;
+//    each thread owns one unit for 4 batch rows and reads 32-wide k-major
+//    slices from shared memory, fetching the next slice meanwhile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+
+#include "persist.cuh"
 
 namespace {
 
@@ -371,6 +386,150 @@ step(const Step<bf16> p, int B, int H) {
 
 }  // namespace tc_step
 
+// --------------------------------------- persistent (bf16) kernel
+
+namespace persist_step {
+
+using namespace hl::persist;
+
+// requires H % 8 == 0; the grid is p.clusters clusters of p.c == CL
+// blocks
+constexpr int CL = 8;
+
+template <int NPW>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd(const bf16* __restrict__ dys, const bf16* __restrict__ acts,
+    const bf16* __restrict__ cs, const bf16* __restrict__ c0,
+    const bf16* __restrict__ wt, const float* __restrict__ dh_init,
+    float* __restrict__ dc, bf16* __restrict__ dgates,
+    float* __restrict__ dh0, unsigned* __restrict__ bar, int T, int B,
+    int H, const Plan p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int cu = p.c * p.u, K = 4 * H;
+  const Layout lay(p);
+  bf16* w_s = reinterpret_cast<bf16*>(smem);          // [n][kc + 8]
+  bf16* x_s = reinterpret_cast<bf16*>(smem + lay.slab);   // [stages][BM][LDX]
+  float* p_s = reinterpret_cast<float*>(smem + lay.slab);  // [wk][BM][n + 4]
+  uint32_t peer[CL];                        // the partials of the cluster
+  peers(peer, hl::smem_addr(p_s));
+  const uint32_t bars = hl::smem_addr(smem + lay.bars);
+  uint32_t par = 0;                         // the ring's next parities
+  const int rank = static_cast<int>(cluster_rank());
+  const int q = blockIdx.x / p.c;           // this block's cluster
+  const int j0 = q * cu;                    // the cluster's first unit
+  const int k0 = rank * p.kc;               // this block's columns of 4H
+  const int cols = min(p.kc, K - k0);
+  const int warp = threadIdx.x / 32, ng = warp % p.nw, wkg = warp / p.nw;
+  const int ju = j0 + rank * p.u;           // this block's first unit
+  const int nu = max(0, min(p.u, H - ju));  // and how many it has
+
+  // slab row jl: W^T row j0 + jl (column j0 + jl of W), this block's
+  // columns
+  load_slab(w_s, p.n, p.kc, cols, wt, [&](int r) -> const bf16* {
+    return r < cu && j0 + r < H ? wt + (size_t)(j0 + r) * K + k0 : nullptr;
+  });
+
+  const int lw0 = first_loader(p.nw, p.wk);
+  init_ring(bars, p.stages, lw0);
+  const size_t g4 = (size_t)B * K, g1 = (size_t)B * H;
+  cluster_arrive();                         // the partials are free
+  for (int s = 0; s <= T; ++s) {
+    const int t = T - 1 - s;    // the step whose delta follows; -1: dh0
+    Step<bf16> st{};
+    if (t >= 0)
+      st = Step<bf16>{nullptr, wt, dh_init, dys + t * g1, acts + t * g4,
+                      cs + t * g1, t ? cs + (t - 1) * g1 : c0, dc,
+                      dgates + t * g4, dh0};
+    for (int b0 = 0; b0 < B; b0 += BM) {
+      const int rows = min(BM, B - b0);
+      // this thread's cells (b0 + i / u, ju + i % u), i = 4 tid .. + 3:
+      // residuals and dc, loaded before the barrier so that their latency
+      // hides
+      const int i0 = GC * threadIdx.x;
+      const bool live = i0 < rows * p.u;
+      Cell cell[GC];
+      float dhr[GC];
+#pragma unroll
+      for (int e = 0; e < GC; ++e) {
+        const int b = (i0 + e) / p.u, jl = (i0 + e) % p.u;
+        dhr[e] = 0.f;
+        if (b < rows && jl < nu) {
+          const size_t bb = b0 + b;
+          if (t >= 0) cell[e] = load_cell(st, bb, ju + jl, H);
+          if (s == 0) dhr[e] = dh_init[bb * H + ju + jl];
+        }
+      }
+      if (s > 0) {              // dh_rec = dgates[t+1] . W
+        if (b0 == 0) grid_wait(bar, (unsigned)s * gridDim.x);
+        float acc[NPW][MT][4];
+#pragma unroll
+        for (int j = 0; j < NPW; ++j)
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int v = 0; v < 4; ++v) acc[j][mt][v] = 0.f;
+        cluster_wait();         // the cluster is done with the partials
+        product<NPW>(dgates + (t + 1) * g4, K, k0, cols, b0, rows, p.kc,
+                     w_s, x_s, bars, p.stages, par, ng, wkg, p.wk, lw0, acc);
+        if (wkg < p.wk) store_partial<NPW>(p_s, p.n, p.u, cu, ng, wkg, acc);
+        fold_slabs(p_s, p.n, p.wk);
+        cluster_arrive();
+        cluster_wait();         // every block's partials are written
+        float4 v[CL];           // the cells' dh_rec from the CL blocks
+        if (live) {
+          gather(v, peer, rank * BM * p.u + i0);
+#pragma unroll
+          for (int e = 0; e < GC; ++e) dhr[e] = rank_sum(v, e);
+        }
+        cluster_arrive();       // this block is done with the partials
+      }
+#pragma unroll
+      for (int e = 0; e < GC; ++e) {
+        const int b = (i0 + e) / p.u, jl = (i0 + e) % p.u;
+        if (b < rows && jl < nu) {
+          const size_t bb = b0 + b;
+          if (t >= 0)
+            cell_delta(st, cell[e], dhr[e], bb, ju + jl, H);
+          else
+            dh0[bb * H + ju + jl] = dhr[e];
+        }
+      }
+    }
+    if (t >= 0) grid_arrive(bar);
+  }
+  cluster_wait();               // no block leaves while a peer reads it
+}
+
+template <int NPW>
+cudaError_t run(const bf16* dys, const bf16* acts, const bf16* cs,
+                const bf16* c0, const bf16* wt, const float* dh_init,
+                float* dc, bf16* dgates, float* dh0, unsigned* bar, int T_,
+                int B, int H, const Plan& p, cudaStream_t stream) {
+  return hl::persist::launch(bwd<NPW>, p.clusters * p.c, p.c, p.smem,
+                             stream, dys, acts, cs, c0, wt, dh_init, dc,
+                             dgates, dh0, bar, T_, B, H, p);
+}
+
+cudaError_t run_plan(const bf16* dys, const bf16* acts, const bf16* cs,
+                     const bf16* c0, const bf16* wt, const float* dh_init,
+                     float* dc, bf16* dgates, float* dh0, unsigned* bar,
+                     int T_, int B, int H, const Plan& p, cudaStream_t s) {
+  if (p.c != CL) return cudaErrorInvalidValue;
+  switch (p.npw) {
+    case 1: return run<1>(dys, acts, cs, c0, wt, dh_init, dc, dgates, dh0,
+                          bar, T_, B, H, p, s);
+    case 2: return run<2>(dys, acts, cs, c0, wt, dh_init, dc, dgates, dh0,
+                          bar, T_, B, H, p, s);
+    case 3: return run<3>(dys, acts, cs, c0, wt, dh_init, dc, dgates, dh0,
+                          bar, T_, B, H, p, s);
+    case 4: return run<4>(dys, acts, cs, c0, wt, dh_init, dc, dgates, dh0,
+                          bar, T_, B, H, p, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace persist_step
+
 template <typename T>
 cudaError_t launch(const Step<T>& p, int B, int H, cudaStream_t stream,
                    bool tc) {
@@ -420,18 +579,29 @@ cudaError_t run(const T* dys, const T* acts, const T* cs, const T* c0,
 // in fp32 (bf16 == 0) or bf16; dh_init (B, H) fp32, the carried dh at
 // T-1; dc (B, H) fp32 holds the carried dc at T-1 and is left holding
 // dc0; dgates (T, B, 4H) in the same dtype and dh0 (B, H) fp32 receive
-// the results. T >= 1. Returns the launches' cudaError_t.
+// the results. T >= 1. plan (host, hl::persist::PLAN_INTS ints) selects
+// the persistent kernel (bf16, H % 8 == 0), with bar a zeroed 32-bit word
+// on the card; null selects the per-step kernels (tc_step for bf16 with
+// H % 8 == 0, else fma_step). Returns the launches' cudaError_t.
 extern "C" int hl_lstm_bwd(const void* dys, const void* acts, const void* cs,
                            const void* c0, const void* wt,
                            const void* dh_init, void* dc, void* dgates,
                            void* dh0, int T, int B, int H, int bf16_,
-                           void* stream) {
+                           const int* plan, void* bar, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* dhi = static_cast<const float*>(dh_init);
   float* dcc = static_cast<float*>(dc);
   float* dh0_ = static_cast<float*>(dh0);
   cudaError_t err;
-  if (bf16_)
+  if (plan) {
+    if (!bf16_ || H % 8 != 0 || !bar) return cudaErrorInvalidValue;
+    err = persist_step::run_plan(
+        static_cast<const bf16*>(dys), static_cast<const bf16*>(acts),
+        static_cast<const bf16*>(cs), static_cast<const bf16*>(c0),
+        static_cast<const bf16*>(wt), dhi, dcc, static_cast<bf16*>(dgates),
+        dh0_, static_cast<unsigned*>(bar), T, B, H,
+        hl::persist::read_plan(plan), s);
+  } else if (bf16_)
     err = run(static_cast<const bf16*>(dys), static_cast<const bf16*>(acts),
               static_cast<const bf16*>(cs), static_cast<const bf16*>(c0),
               static_cast<const bf16*>(wt), dhi, dcc,

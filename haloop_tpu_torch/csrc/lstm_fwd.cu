@@ -21,35 +21,59 @@
 // is exactly ys[t-1]: each step reads its h from the previous step's
 // output (h0 for the first), as the TPU kernel's h.astype(w.dtype) does.
 //
-// What bounds it on the H100: every step reads all of W_hh (4H x H:
-// 18.9 MB in bf16 at H=1536), far beyond one SM's 227 KB of shared
-// memory, and the steps are strictly sequential. At lstm:512's eval batch
-// (B=48) one step is 0.9 GFLOP against ~33 MB of L2 reads (W_hh once,
-// h once per block), so a step is bound by streaming from the 50 MB L2
-// (where W_hh stays between steps) and by the fixed cost of a launch.
+// What bounds it on the H100: the steps are strictly sequential, and each
+// is a small product: at lstm:512's (T, B, H) = (385, 48, 1536) a step is
+// 0.9 GFLOP, about 1 us of tensor-core time (the bound over the whole
+// call is 0.36 ms), against W_hh (4H x H, 18.9 MB in bf16), which no SM
+// can hold (227 KB of shared memory) but the card's SMs can together. A
+// per-step launch re-streams W_hh from L2 every step and pays a launch;
+// once W_hh stays on chip what is left is the exchange of h between the
+// SMs (B x H bf16 a step, which every SM needs a part of), the partial
+// sums between the blocks that split a contraction, and one grid-wide
+// barrier a step. Measured on an H100 (scripts/lstm_probe.py, clock64
+// stamps a phase): the product, its loads through L2 included, is about
+// half of a step and the exchange, cell update and barrier the rest.
 //
-// This design: one kernel launch per time step on the caller's stream; c
-// is updated in place. A block owns JT hidden units and computes all four
-// gate rows {j, H+j, 2H+j, 3H+j} of each, so the cell update is
-// block-local and needs no cross-block reduction.
-//  * bf16 with H % 8 == 0 (the hac path): tensor cores (WMMA 16x16x16,
-//    fp32 accumulators), h and W_hh streamed through shared memory in
-//    128-wide K slices by a 4-stage cp.async pipeline (139 KB of dynamic
-//    shared memory); 16 hidden units x 64 batch rows per block, 8 warps
-//    (an m-tile and two n-tiles each). Each thread loads its cells'
-//    x_proj gates and c before the product loop, so their latency hides
-//    behind it rather than stalling the epilogue.
-//  * fp32, or H % 8 != 0: the same block shape with CUDA-core FMAs in
-//    fp32; each thread owns one unit's four gates for 4 batch rows, reads
-//    32-wide k-major slices from shared memory, and fetches the next slice
-//    into registers meanwhile.
-// Later perf_opt: a persistent cooperative kernel with W_hh resident in
-// shared memory across the 132 SMs (~143 KB each) and one grid-wide
-// barrier per step, which removes both the L2 stream and the launches.
+// This design (bf16, H % 8 == 0, W_hh slices that fit the SMs' shared
+// memory: every hac width; persist_step below, built from persist.cuh):
+// one persistent launch a layer call, one block an SM, launched
+// cooperatively in clusters of 4 (the launch fails rather than leaving a
+// block unscheduled). Cluster q owns 4u consecutive hidden units and all
+// four gate rows of each (16u rows of W_hh); block r of the cluster keeps
+// columns [r kc, (r + 1) kc) of those rows resident in shared memory for
+// the whole sequence (u = 14, 28 clusters, 172 KB a block at lstm:512;
+// the card holds 30 clusters of 4 at once). Each step a block multiplies
+// its quarter of h_{t-1} (= ys[t-1], read through L2 by cp.async.cg in
+// 64-wide slices, all in flight at once through an mbarrier ring that
+// shares its shared memory with the partials) by its slab on tensor cores
+// (mma.sync m16n8k16, fp32 sums), writes the (B x 16u) fp32 partial into
+// its shared memory, and after a cluster barrier sums, for its own u
+// units, the four blocks' partials through distributed shared memory in
+// a fixed order (rank 0..3, 16 bytes a load): so each block reads a
+// quarter of h a step (4.1 MB of L2 for the grid at lstm:512, not 17),
+// and no sum depends on timing (two runs give the same bits). The cell
+// update then runs in registers, four consecutive cells a thread, with
+// x_proj[t] and c loaded before the barrier wait; ys[t] (and acts[t],
+// cs[t]) are written, and the grid barrier (a counter word the wrapper
+// zeroes, release/acquire at gpu scope, a spin that traps after tens of
+// seconds) opens step t+1. At a batch over 48 rows a step loops over
+// 48-row tiles.
+// Other routes, chosen by the wrapper before the launch (nn/lstm_cuda.py
+// route), one launch a step:
+//  * bf16 whose W_hh slices do not fit (H above ~1,600 on an H100):
+//    tc_step, tensor cores (WMMA 16x16x16, fp32 accumulators), h and W_hh
+//    streamed through shared memory in 128-wide K slices by a 4-stage
+//    cp.async pipeline; 16 hidden units x 64 batch rows a block, 8 warps.
+//  * fp32 (parity runs), or H % 8 != 0: fma_step, the same block shape
+//    with CUDA-core FMAs in fp32; each thread owns one unit's four gates
+//    for 4 batch rows, reads 32-wide k-major slices from shared memory,
+//    and fetches the next slice into registers meanwhile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+
+#include "persist.cuh"
 
 namespace {
 
@@ -381,6 +405,152 @@ step(const bf16* __restrict__ xp, const bf16* __restrict__ w,
 
 }  // namespace tc_step
 
+// --------------------------------------- persistent (bf16) kernel
+
+namespace persist_step {
+
+using namespace hl::persist;
+
+// requires H % 8 == 0; the grid is p.clusters clusters of p.c == CL
+// blocks
+constexpr int CL = 4;
+
+template <int NPW>
+__global__ void __launch_bounds__(THREADS, 1)
+fwd(const bf16* __restrict__ xp, const bf16* __restrict__ w,
+    const bf16* __restrict__ h0, float* __restrict__ c,
+    bf16* __restrict__ ys, float* __restrict__ h_last,
+    bf16* __restrict__ acts, bf16* __restrict__ cs,
+    unsigned* __restrict__ bar, int T, int B, int H, const Plan p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int cu = p.c * p.u;
+  const Layout lay(p);
+  bf16* w_s = reinterpret_cast<bf16*>(smem);          // [n][kc + 8]
+  bf16* x_s = reinterpret_cast<bf16*>(smem + lay.slab);   // [stages][BM][LDX]
+  float* p_s = reinterpret_cast<float*>(smem + lay.slab);  // [wk][BM][n + 4]
+  uint32_t peer[CL];                        // the partials of the cluster
+  peers(peer, hl::smem_addr(p_s));
+  const uint32_t bars = hl::smem_addr(smem + lay.bars);
+  uint32_t par = 0;                         // the ring's next parities
+  const int rank = static_cast<int>(cluster_rank());
+  const int q = blockIdx.x / p.c;           // this block's cluster
+  const int j0 = q * cu;                    // the cluster's first unit
+  const int k0 = rank * p.kc;               // this block's columns of h
+  const int cols = min(p.kc, H - k0);
+  const int warp = threadIdx.x / 32, ng = warp % p.nw, wkg = warp / p.nw;
+  const int ju = j0 + rank * p.u;           // this block's first unit
+  const int nu = max(0, min(p.u, H - ju));  // and how many it has
+
+  // slab row g cu + jl: W_hh row g H + j0 + jl, this block's columns
+  load_slab(w_s, p.n, p.kc, cols, w, [&](int r) -> const bf16* {
+    const int g = r / cu, j = j0 + r % cu;
+    return g < 4 && j < H ? w + ((size_t)g * H + j) * H + k0 : nullptr;
+  });
+
+  const int lw0 = first_loader(p.nw, p.wk);
+  init_ring(bars, p.stages, lw0);
+  const size_t in = (size_t)B * 4 * H, out = (size_t)B * H;
+  cluster_arrive();                         // the partials are free
+  for (int t = 0; t < T; ++t) {
+    const bf16* h = t ? ys + (t - 1) * out : h0;
+    for (int b0 = 0; b0 < B; b0 += BM) {
+      const int rows = min(BM, B - b0);
+      // this thread's cells (b0 + i / u, ju + i % u), i = 4 tid .. + 3:
+      // x_proj's gates and c, loaded before the barrier so that their
+      // latency hides
+      const int i0 = GC * threadIdx.x;
+      const bool live = i0 < rows * p.u;
+      float zx[GC][4], cv[GC];
+#pragma unroll
+      for (int e = 0; e < GC; ++e) {
+        const int b = (i0 + e) / p.u, jl = (i0 + e) % p.u;
+        cv[e] = 0.f;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) zx[e][g] = 0.f;
+        if (b < rows && jl < nu) {
+          const bf16* x = xp + t * in + (size_t)(b0 + b) * 4 * H + ju + jl;
+#pragma unroll
+          for (int g = 0; g < 4; ++g) zx[e][g] = __bfloat162float(x[g * H]);
+          cv[e] = c[(size_t)(b0 + b) * H + ju + jl];
+        }
+      }
+      if (t > 0 && b0 == 0) grid_wait(bar, (unsigned)t * gridDim.x);
+
+      float acc[NPW][MT][4];
+#pragma unroll
+      for (int j = 0; j < NPW; ++j)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) acc[j][mt][v] = 0.f;
+      cluster_wait();             // the cluster is done with the partials
+      product<NPW>(h, H, k0, cols, b0, rows, p.kc, w_s, x_s, bars, p.stages,
+                   par, ng, wkg, p.wk, lw0, acc);
+      if (wkg < p.wk) store_partial<NPW>(p_s, p.n, p.u, cu, ng, wkg, acc);
+      fold_slabs(p_s, p.n, p.wk);
+      cluster_arrive();
+      cluster_wait();             // every block's partials are written
+
+      float4 v[4][CL];            // the cells' gates from the CL blocks
+      if (live)
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          gather(v[g], peer, (rank * 4 + g) * BM * p.u + i0);
+#pragma unroll
+      for (int e = 0; e < GC; ++e) {
+        const int b = (i0 + e) / p.u, jl = (i0 + e) % p.u;
+        if (live && b < rows && jl < nu) {
+          float z[4];
+#pragma unroll
+          for (int g = 0; g < 4; ++g) z[g] = zx[e][g] + rank_sum(v[g], e);
+          const size_t bb = b0 + b, o = bb * H + ju + jl;
+          float cc = cv[e];
+          const float hn = cell_update(z[0], z[1], z[2], z[3], cc,
+                                       acts ? acts + t * in : nullptr,
+                                       cs ? cs + t * out : nullptr, bb,
+                                       ju + jl, H);
+          c[o] = cc;
+          ys[t * out + o] = __float2bfloat16(hn);
+          if (t == T - 1) h_last[o] = hn;
+        }
+      }
+      cluster_arrive();           // this block is done with the partials
+    }
+    if (t + 1 < T) grid_arrive(bar);
+  }
+  cluster_wait();                 // no block leaves while a peer reads it
+}
+
+template <int NPW>
+cudaError_t run(const bf16* xp, const bf16* w, const bf16* h0, float* c,
+                bf16* ys, float* h_last, bf16* acts, bf16* cs,
+                unsigned* bar, int T_, int B, int H, const Plan& p,
+                cudaStream_t stream) {
+  return hl::persist::launch(fwd<NPW>, p.clusters * p.c, p.c, p.smem,
+                             stream, xp, w, h0, c, ys, h_last, acts, cs, bar,
+                             T_, B, H, p);
+}
+
+cudaError_t run_plan(const bf16* xp, const bf16* w, const bf16* h0,
+                     float* c, bf16* ys, float* h_last, bf16* acts, bf16* cs,
+                     unsigned* bar, int T_, int B, int H, const Plan& p,
+                     cudaStream_t s) {
+  if (p.c != CL) return cudaErrorInvalidValue;
+  switch (p.npw) {
+    case 1: return run<1>(xp, w, h0, c, ys, h_last, acts, cs, bar, T_, B, H,
+                          p, s);
+    case 2: return run<2>(xp, w, h0, c, ys, h_last, acts, cs, bar, T_, B, H,
+                          p, s);
+    case 3: return run<3>(xp, w, h0, c, ys, h_last, acts, cs, bar, T_, B, H,
+                          p, s);
+    case 4: return run<4>(xp, w, h0, c, ys, h_last, acts, cs, bar, T_, B, H,
+                          p, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace persist_step
+
 template <typename T>
 cudaError_t run_fma(const T* xp, const T* w, const T* h0, float* c, T* ys,
                     float* h_last, T* acts, T* cs, int T_, int B, int H,
@@ -425,29 +595,64 @@ cudaError_t run_tc(const bf16* xp, const bf16* w, const bf16* h0, float* c,
 // bf16; c (B, H) fp32 holds c0 and is left holding the last c; ys
 // (T, B, H) in the same dtype; h_last (B, H) fp32 receives the last h.
 // acts (T, B, 4H) and cs (T, B, H) in the same dtype receive the
-// residuals, or are both null. Returns the launches' cudaError_t.
+// residuals, or are both null. plan (host, hl::persist::PLAN_INTS ints)
+// selects the persistent kernel (bf16, H % 8 == 0), with bar a zeroed
+// 32-bit word on the card; null selects the per-step kernels (tc_step for
+// bf16 with H % 8 == 0, else fma_step). Returns the launches'
+// cudaError_t.
 extern "C" int hl_lstm_fwd(const void* xp, const void* w, const void* h0,
                            void* c, void* ys, void* h_last, void* acts,
                            void* cs, int T, int B, int H, int bf16_,
-                           void* stream) {
+                           const int* plan, void* bar, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* cc = static_cast<float*>(c);
-  float* hl = static_cast<float*>(h_last);
+  float* hlast = static_cast<float*>(h_last);
   cudaError_t err;
-  if (bf16_ && H % 8 == 0)
+  if (plan) {
+    if (!bf16_ || H % 8 != 0 || !bar) return cudaErrorInvalidValue;
+    err = persist_step::run_plan(
+        static_cast<const bf16*>(xp), static_cast<const bf16*>(w),
+        static_cast<const bf16*>(h0), cc, static_cast<bf16*>(ys), hlast,
+        static_cast<bf16*>(acts), static_cast<bf16*>(cs),
+        static_cast<unsigned*>(bar), T, B, H, hl::persist::read_plan(plan),
+        s);
+  } else if (bf16_ && H % 8 == 0)
     err = run_tc(static_cast<const bf16*>(xp), static_cast<const bf16*>(w),
-                 static_cast<const bf16*>(h0), cc, static_cast<bf16*>(ys), hl,
-                 static_cast<bf16*>(acts), static_cast<bf16*>(cs), T, B, H,
-                 s);
+                 static_cast<const bf16*>(h0), cc, static_cast<bf16*>(ys),
+                 hlast, static_cast<bf16*>(acts), static_cast<bf16*>(cs), T, B,
+                 H, s);
   else if (bf16_)
     err = run_fma(static_cast<const bf16*>(xp), static_cast<const bf16*>(w),
                   static_cast<const bf16*>(h0), cc, static_cast<bf16*>(ys),
-                  hl, static_cast<bf16*>(acts), static_cast<bf16*>(cs), T, B,
-                  H, s);
+                  hlast, static_cast<bf16*>(acts), static_cast<bf16*>(cs), T,
+                  B, H, s);
   else
     err = run_fma(static_cast<const float*>(xp), static_cast<const float*>(w),
                   static_cast<const float*>(h0), cc, static_cast<float*>(ys),
-                  hl, static_cast<float*>(acts), static_cast<float*>(cs), T,
+                  hlast, static_cast<float*>(acts), static_cast<float*>(cs), T,
                   B, H, s);
   return static_cast<int>(err);
+}
+
+// What the current card offers the persistent kernels: out[0] SMs,
+// out[1] shared memory a block may opt into, out[2] clusters of c blocks
+// (one an SM, at out[1] bytes each) resident at once
+// (cudaOccupancyMaxActiveClusters), out[3] cooperative launch supported,
+// out[4] cluster launch supported. Returns a cudaError_t.
+extern "C" int hl_lstm_card(int c, int* out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&out[0], cudaDevAttrMultiProcessorCount,
+                                 dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &out[1], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&out[3], cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&out[4], cudaDevAttrClusterLaunch, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[2] = hl::persist::max_clusters(persist_step::fwd<1>, c, out[1]);
+  return out[2] < 0 ? -out[2] : 0;
 }

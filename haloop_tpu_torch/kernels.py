@@ -28,10 +28,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # xp, w, h0, c, ys, h_last, acts, cs, T, B, H, bf16, stream
-    "hl_lstm_fwd": [_P] * 8 + [_I] * 4 + [_P],
-    # dys, acts, cs, c0, wt, dh_init, dc, dgates, dh0, T, B, H, bf16, stream
-    "hl_lstm_bwd": [_P] * 9 + [_I] * 4 + [_P],
+    # xp, w, h0, c, ys, h_last, acts, cs, T, B, H, bf16, plan (host
+    # int[10] or null), barrier word, stream
+    "hl_lstm_fwd": [_P] * 8 + [_I] * 4 + [_P] * 3,
+    # dys, acts, cs, c0, wt, dh_init, dc, dgates, dh0, T, B, H, bf16, plan,
+    # barrier word, stream
+    "hl_lstm_bwd": [_P] * 9 + [_I] * 4 + [_P] * 3,
+    # cluster size, out (host int[5])
+    "hl_lstm_card": [_I, _P],
     # xp, wq, sdiv, h0, c, hq, ys, h_last, acts, cs, T, B, H, bf16, stream
     "hl_lstm_fwd_q8": [_P] * 10 + [_I] * 4 + [_P],
     # dys, acts, cs, c0, wqt, s, dh_init, dc, dgates, dh0, dgs, pmax, q,

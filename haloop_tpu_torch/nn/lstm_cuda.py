@@ -17,7 +17,18 @@ XLA) and the same choice runs the ``LSTMScanQ8`` Function (K1-q8 with
 residuals, K2-q8) or K1-q8 without residuals.
 A CPU tensor takes the plain versions in ``nn.lstm`` (through the same
 Function under autograd); a CUDA tensor launches the kernels or raises.
+
+K1 and K2 take one of three routes, decided before the launch by
+``route`` from the dtype, H and what the card offers (never on failure):
+``persist``, one persistent launch a layer call with W_hh resident in the
+SMs' shared memory (bf16, H % 8 == 0, W's slices fit; every hac width),
+laid out by ``persist_plan``; ``tc_step``, a tensor-core launch a step
+(bf16 whose slices do not fit); ``fma_step``, a CUDA-core launch a step
+(fp32, or H % 8 != 0). ``route_launches`` counts the calls of each.
 """
+
+import ctypes
+from dataclasses import astuple, dataclass
 
 import torch
 
@@ -30,6 +41,136 @@ bwd_launches = 0          # K2 calls (one per layer backward)
 q8_launches = 0           # K1-q8 calls without residuals
 q8_residual_launches = 0  # K1-q8 calls with residuals
 q8_bwd_launches = 0       # K2-q8 calls
+# K1 (both modes) and K2 calls by route: "fwd_persist", "bwd_tc_step", ...
+route_launches = {f"{k}_{r}": 0 for k in ("fwd", "bwd")
+                  for r in ("persist", "tc_step", "fma_step")}
+
+# the persistent kernels' fixed shape (csrc/persist.cuh): blocks a cluster
+# (K1 splits its H-deep contraction in two, K2 its 4H-deep one in four),
+# threads (8 warps), batch rows a tile, contraction a ring slot, and the
+# units a block may own (even: a cluster's units fill whole 8-row tiles)
+CLUSTERS = {"fwd": 4, "bwd": 8}
+THREADS, BM, KS = 256, 48, 64
+UNITS = (2, 4, 6, 8, 10, 12, 14, 16)
+WARPS = THREADS // 32
+
+
+@dataclass(frozen=True)
+class Plan:
+    """One persistent launch's layout (csrc/persist.cuh ``Plan``, in the
+    same order)."""
+    c: int          # blocks a cluster
+    u: int          # hidden units a block updates; a cluster owns c u
+    clusters: int   # clusters in the grid
+    kc: int         # contraction a block takes (multiple of KS)
+    n: int          # rows of the resident slab (the product's N)
+    npw: int        # 8-row n-tiles a warp
+    nw: int         # warp groups along n
+    wk: int         # warp groups along k (partial slabs)
+    stages: int     # ring slots (64-wide slices in flight)
+    smem: int       # dynamic shared memory a block, bytes
+
+    @property
+    def blocks(self):
+        return self.c * self.clusters
+
+
+def _warp_split(nt):
+    """(npw, nw, wk) for nt 8-row n-tiles over the 8 warps: nw groups of
+    npw tiles times wk groups along k (the warps past nw wk sit out). The
+    least work a warp (npw / wk), then the fewest slabs."""
+    splits = [(npw, nt // npw, WARPS // (nt // npw)) for npw in (1, 2, 3, 4)
+              if nt % npw == 0 and nt // npw <= WARPS]
+    return min(splits, key=lambda s: (s[0] / s[2], s[2]))
+
+
+def persist_plan(kind, H, sms, smem, clusters=None):
+    """The persistent launch of K1 (``kind`` "fwd") or K2 ("bwd") at width
+    H on a card of ``sms`` SMs whose blocks may use ``smem`` bytes of
+    shared memory and which holds ``clusters`` clusters of
+    CLUSTERS[kind] blocks at once (default as many as the SMs make), or
+    None when W's slices do not fit. The most blocks that fit: the fewest
+    units a block."""
+    c = CLUSTERS[kind]
+    clusters = sms // c if clusters is None else clusters
+    kdim = H if kind == "fwd" else 4 * H
+    kc = -(-kdim // (c * KS)) * KS
+    for u in UNITS:
+        cu = c * u
+        ncl = -(-H // cu)
+        if ncl > clusters:
+            continue
+        n = 4 * cu if kind == "fwd" else cu
+        split = _warp_split(n // 8) if n // 8 <= 4 * WARPS else None
+        if split is None:
+            return None
+        npw, nw, wk = split
+        # the slab, then one region for the ring (as deep as the rest of
+        # the shared memory allows, all kc / KS slices at most) and, after
+        # each product, the partials; then an 8-byte mbarrier a slot
+        slab, slot = n * (kc + 8) * 2, BM * (KS + 8) * 2
+        stages = min(kc // KS, (smem - slab - 8 * (kc // KS)) // slot)
+        part = wk * BM * n * 4
+        region = -(-max(stages * slot, part) // 16) * 16
+        size = slab + region + 8 * stages
+        if stages < 1 or size > smem:
+            return None
+        return Plan(c, u, ncl, kc, n, npw, nw, wk, stages, size)
+    return None
+
+
+def route(kind, dtype, H, B, sms, smem, clusters=None):
+    """("persist", Plan) | ("tc_step", None) | ("fma_step", None) for K1
+    (``kind`` "fwd", both modes) or K2 ("bwd") at (dtype, H), batch B, on
+    a card of ``sms`` SMs and ``smem`` bytes of shared memory a block
+    (``clusters``: see persist_plan). Every B takes the route of its H: the
+    persistent kernels loop over 48-row batch tiles."""
+    del B
+    if dtype != torch.bfloat16 or H % 8:
+        return "fma_step", None
+    plan = persist_plan(kind, H, sms, smem, clusters)
+    return ("persist", plan) if plan else ("tc_step", None)
+
+
+_cards = {}
+
+
+def card(device):
+    """(SMs, shared memory a block may opt into, {kind: clusters of
+    CLUSTERS[kind] blocks, one an SM, resident at once}) of a CUDA
+    device, queried once (``hl_lstm_card``); raises if the card takes no
+    cooperative cluster launch."""
+    key = torch.device(device).index or 0
+    if key not in _cards:
+        lib = kernels.library()
+        ncl = {}
+        with torch.cuda.device(key):
+            for kind, c in CLUSTERS.items():
+                out = (ctypes.c_int * 5)()
+                kernels.check(lib.hl_lstm_card(c, out), "hl_lstm_card")
+                sms, smem, ncl[kind], coop, cluster = out
+                if not (coop and cluster and ncl[kind] > 0):
+                    raise RuntimeError(
+                        f"lstm_scan: device {key} offers no cooperative "
+                        f"launch in clusters of {c} (cooperative {coop}, "
+                        f"clusters {cluster}, {ncl[kind]} resident at once)")
+        _cards[key] = (sms, smem, ncl)
+    return _cards[key]
+
+
+def _launch_route(kind, dtype, H, B, device):
+    """The route and, for ``persist``, the plan as a C int array and a
+    zeroed barrier word; counts the call."""
+    if dtype == torch.bfloat16 and H % 8 == 0:
+        sms, smem, ncl = card(device)
+        name, plan = route(kind, dtype, H, B, sms, smem, ncl[kind])
+    else:
+        name, plan = route(kind, dtype, H, B, 0, 0)
+    route_launches[f"{kind}_{name}"] += 1
+    if plan is None:
+        return None, None
+    return ((ctypes.c_int * len(astuple(plan)))(*astuple(plan)),
+            torch.zeros(1, dtype=torch.int32, device=device))
 
 
 def lstm_scan(w_hh, x_proj, h0, c0, q8=False):
@@ -146,12 +287,15 @@ def lstm_fwd_cuda(w_hh, x_proj, h0, c0, residuals=False):
         return (ys, h, c, acts, cs) if residuals else (ys, h, c)
     # h enters each product in W's dtype: h0 so, and later ys[t-1]
     h_in = h0.to(dt).contiguous()
+    plan, bar = _launch_route("fwd", dt, H, B, dev)
     err = kernels.library().hl_lstm_fwd(
         x_proj.data_ptr(), w_hh.data_ptr(), h_in.data_ptr(), c.data_ptr(),
         ys.data_ptr(), h_last.data_ptr(),
         acts.data_ptr() if residuals else None,
         cs.data_ptr() if residuals else None, T, B, H,
-        int(dt == torch.bfloat16), kernels.stream_of(x_proj))
+        int(dt == torch.bfloat16), plan,
+        bar.data_ptr() if bar is not None else None,
+        kernels.stream_of(x_proj))
     kernels.check(err, "hl_lstm_fwd")
     if residuals:
         residual_launches += 1
@@ -192,12 +336,14 @@ def lstm_bwd_cuda(dys, acts, cs, c0, w, dh_last, dc_last):
     if T == 0:
         return dgates, dh_in, dc
     dh0 = torch.empty((B, H), dtype=torch.float32, device=dev)
-    # W^T (H, 4H): each block streams contiguous rows of its hidden units
+    # W^T (H, 4H): each block takes contiguous rows of its hidden units
     wt = w.t().contiguous()
+    plan, bar = _launch_route("bwd", dt, H, B, dev)
     err = kernels.library().hl_lstm_bwd(
         dys.data_ptr(), acts.data_ptr(), cs.data_ptr(), c0.data_ptr(),
         wt.data_ptr(), dh_in.data_ptr(), dc.data_ptr(), dgates.data_ptr(),
-        dh0.data_ptr(), T, B, H, int(dt == torch.bfloat16),
+        dh0.data_ptr(), T, B, H, int(dt == torch.bfloat16), plan,
+        bar.data_ptr() if bar is not None else None,
         kernels.stream_of(acts))
     kernels.check(err, "hl_lstm_bwd")
     bwd_launches += 1

@@ -40,8 +40,8 @@ rounds p to bf16 and K12 does not). K13: fp32 1e-5 of the largest output (the
 same fp32 products summed in another order); bf16 2e-2 (one bf16
 rounding of each output). K1-q8 and K2-q8: rel L2 limits placed between
 the kernel against its plain version and two planted faults
-(``chip_smoke.K1Q8_REL``, ``K2Q8_REL``). K1-q8, K2-q8, K4, K6, K8b, K12
-and K13 give the same bits on every run.
+(``chip_smoke.K1Q8_REL``, ``K2Q8_REL``). K1 (both modes) and K2 in bf16,
+K1-q8, K2-q8, K4, K6, K8b, K12 and K13 give the same bits on every run.
 """
 
 import pytest
@@ -214,6 +214,101 @@ def test_lstm_kernel_rejects_what_it_does_not_take(cuda):
         lstm_cuda.lstm_scan(w.T.contiguous().T, xp, h0, c0)   # strided
     with pytest.raises(ValueError):
         lstm_cuda.lstm_scan(w, xp, h0.cpu(), c0)
+
+
+# ------------------------ the persistent bf16 kernels (K1, K2) and routes
+
+
+def _route_taken(fn):
+    """fn's result and the K1/K2 calls it made by route."""
+    before = dict(lstm_cuda.route_launches)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v - before[k] for k, v in lstm_cuda.route_launches.items()
+                 if v != before[k]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H,name,timed", chip_smoke.LSTM_SHAPES)
+def test_lstm_route_and_counter_at_smoke_shapes(cuda, T, B, H, name, timed):
+    """K1 (both modes) and K2 take the route ``lstm_cuda.route`` gives for
+    this card, one count each on that route's counter and on the
+    kernel's; the main paths' widths (1536, 1024, 512) in bf16 take the
+    persistent kernels."""
+    dtype = getattr(torch, name)
+    sms, smem, ncl = lstm_cuda.card(cuda)
+    routes = {k: lstm_cuda.route(k, dtype, H, B, sms, smem, ncl[k])[0]
+              for k in ("fwd", "bwd")}
+    if dtype == torch.bfloat16 and H in (1536, 1024, 512):
+        assert routes == {"fwd": "persist", "bwd": "persist"}
+    args = _lstm_inputs(T, B, H, dtype, cuda, seed=T + H)
+    l0, r0, b0 = (lstm_cuda.launches, lstm_cuda.residual_launches,
+                  lstm_cuda.bwd_launches)
+    _, took = _route_taken(lambda: lstm_cuda.lstm_fwd_cuda(*args))
+    assert took == {f"fwd_{routes['fwd']}": 1}
+    (_, _, _, acts, cs), took = _route_taken(
+        lambda: lstm_cuda.lstm_fwd_cuda(*args, residuals=True))
+    assert took == {f"fwd_{routes['fwd']}": 1}
+    w, _, h0, c0 = args
+    dys = torch.randn((T, B, H), generator=torch.Generator().manual_seed(1)
+                      ).to(cuda, acts.dtype)
+    _, took = _route_taken(lambda: lstm_cuda.lstm_bwd_cuda(
+        dys, acts, cs, c0.to(acts.dtype), w, h0, c0))
+    assert took == {f"bwd_{routes['bwd']}": 1}
+    assert (lstm_cuda.launches, lstm_cuda.residual_launches,
+            lstm_cuda.bwd_launches) == (l0 + 1, r0 + 1, b0 + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H", [(20, 48, 1536), (25, 16, 512),
+                                   (9, 37, 200)])
+def test_lstm_kernels_give_the_same_bits_twice(cuda, T, B, H):
+    """K1, K1 with residuals and K2: no sum depends on timing (the
+    persistent kernels sum each product in a fixed order; the grid
+    barrier's counter sums no data)."""
+    args = _lstm_inputs(T, B, H, torch.bfloat16, cuda, seed=T * H)
+    w, acts, cs, c0, dys, dh, dc = _lstm_bwd_inputs(T, B, H, torch.bfloat16,
+                                                    cuda, seed=T * H)
+    for fn in (lambda: lstm_cuda.lstm_fwd_cuda(*args),
+               lambda: lstm_cuda.lstm_fwd_cuda(*args, residuals=True),
+               lambda: lstm_cuda.lstm_bwd_cuda(dys, acts, cs, c0, w, dh, dc)):
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H", [(1, 5, 1000), (1, 48, 1000),
+                                   (1, 100, 1000), (4, 100, 1000),
+                                   (6, 48, 2048)])
+def test_lstm_persistent_edges_and_the_step_route(cuda, T, B, H):
+    """The persistent kernels at T = 1, at batches of one partial tile, one
+    whole 48-row tile and three tiles, and at H = 1000, whose units and
+    columns divide neither the blocks nor the clusters; and a bf16 width
+    whose W slices do not fit (2048, the per-step route): K1, its
+    residuals and K2 against the plain versions at K1's tolerance."""
+    sms, smem, ncl = lstm_cuda.card(cuda)
+    want = "tc_step" if H == 2048 else "persist"
+    for k in ("fwd", "bwd"):
+        assert lstm_cuda.route(k, torch.bfloat16, H, B, sms, smem,
+                               ncl[k])[0] == want
+    args = _lstm_inputs(T, B, H, torch.bfloat16, cuda, seed=T + B + H)
+    tol = chip_smoke.LSTM_TOL["bfloat16"]
+    (ys, h, c, acts, cs), took = _route_taken(
+        lambda: lstm_cuda.lstm_fwd_cuda(*args, residuals=True))
+    assert took == {f"fwd_{want}": 1}
+    ye, he, ce, acts_e, cs_e = lstm.lstm_scan(*args, residuals=True)
+    for got, ref in ((ys, ye), (h, he), (c, ce), (acts, acts_e), (cs, cs_e)):
+        assert chip_smoke.within(torch, got, ref, tol)[0]
+    w, acts, cs, c0, dys, dh, dc = _lstm_bwd_inputs(T, B, H, torch.bfloat16,
+                                                    cuda, seed=T + B + H)
+    got, took = _route_taken(
+        lambda: lstm_cuda.lstm_bwd_cuda(dys, acts, cs, c0, w, dh, dc))
+    assert took == {f"bwd_{want}": 1}
+    c_prev = torch.cat([c0[None], cs[:-1]])
+    ref = lstm.lstm_scan_bwd(dys, acts, c_prev, cs, w, dh, dc)
+    for g, r in zip(got, ref):
+        assert chip_smoke.within(torch, g, r, tol)[0]
 
 
 # --------------------------------------------- the int8 mode (K1-q8, K2-q8)
