@@ -414,7 +414,7 @@ bwd(const bf16* __restrict__ dys, const bf16* __restrict__ acts,
   peers(peer, hl::smem_addr(p_s));
   const uint32_t bars = hl::smem_addr(smem + lay.bars);
   uint32_t par = 0;                         // the ring's next parities
-  const int rank = static_cast<int>(cluster_rank());
+  const int rank = static_cast<int>(hl::cluster_rank());
   const int q = blockIdx.x / p.c;           // this block's cluster
   const int j0 = q * cu;                    // the cluster's first unit
   const int k0 = rank * p.kc;               // this block's columns of 4H
@@ -432,7 +432,7 @@ bwd(const bf16* __restrict__ dys, const bf16* __restrict__ acts,
   const int lw0 = first_loader(p.nw, p.wk);
   init_ring(bars, p.stages, lw0);
   const size_t g4 = (size_t)B * K, g1 = (size_t)B * H;
-  cluster_arrive();                         // the partials are free
+  hl::cluster_arrive();                     // the partials are free
   for (int s = 0; s <= T; ++s) {
     const int t = T - 1 - s;    // the step whose delta follows; -1: dh0
     Step<bf16> st{};
@@ -468,20 +468,20 @@ bwd(const bf16* __restrict__ dys, const bf16* __restrict__ acts,
           for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
             for (int v = 0; v < 4; ++v) acc[j][mt][v] = 0.f;
-        cluster_wait();         // the cluster is done with the partials
+        hl::cluster_wait();     // the cluster is done with the partials
         product<NPW>(dgates + (t + 1) * g4, K, k0, cols, b0, rows, p.kc,
                      w_s, x_s, bars, p.stages, par, ng, wkg, p.wk, lw0, acc);
         if (wkg < p.wk) store_partial<NPW>(p_s, p.n, p.u, cu, ng, wkg, acc);
         fold_slabs(p_s, p.n, p.wk);
-        cluster_arrive();
-        cluster_wait();         // every block's partials are written
+        hl::cluster_arrive();
+        hl::cluster_wait();     // every block's partials are written
         float4 v[CL];           // the cells' dh_rec from the CL blocks
         if (live) {
           gather(v, peer, rank * BM * p.u + i0);
 #pragma unroll
           for (int e = 0; e < GC; ++e) dhr[e] = rank_sum(v, e);
         }
-        cluster_arrive();       // this block is done with the partials
+        hl::cluster_arrive();   // this block is done with the partials
       }
 #pragma unroll
       for (int e = 0; e < GC; ++e) {
@@ -497,7 +497,7 @@ bwd(const bf16* __restrict__ dys, const bf16* __restrict__ acts,
     }
     if (t >= 0) grid_arrive(bar);
   }
-  cluster_wait();               // no block leaves while a peer reads it
+  hl::cluster_wait();           // no block leaves while a peer reads it
 }
 
 template <int NPW>

@@ -432,7 +432,7 @@ fwd(const bf16* __restrict__ xp, const bf16* __restrict__ w,
   peers(peer, hl::smem_addr(p_s));
   const uint32_t bars = hl::smem_addr(smem + lay.bars);
   uint32_t par = 0;                         // the ring's next parities
-  const int rank = static_cast<int>(cluster_rank());
+  const int rank = static_cast<int>(hl::cluster_rank());
   const int q = blockIdx.x / p.c;           // this block's cluster
   const int j0 = q * cu;                    // the cluster's first unit
   const int k0 = rank * p.kc;               // this block's columns of h
@@ -450,7 +450,7 @@ fwd(const bf16* __restrict__ xp, const bf16* __restrict__ w,
   const int lw0 = first_loader(p.nw, p.wk);
   init_ring(bars, p.stages, lw0);
   const size_t in = (size_t)B * 4 * H, out = (size_t)B * H;
-  cluster_arrive();                         // the partials are free
+  hl::cluster_arrive();                     // the partials are free
   for (int t = 0; t < T; ++t) {
     const bf16* h = t ? ys + (t - 1) * out : h0;
     for (int b0 = 0; b0 < B; b0 += BM) {
@@ -483,13 +483,13 @@ fwd(const bf16* __restrict__ xp, const bf16* __restrict__ w,
         for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
           for (int v = 0; v < 4; ++v) acc[j][mt][v] = 0.f;
-      cluster_wait();             // the cluster is done with the partials
+      hl::cluster_wait();         // the cluster is done with the partials
       product<NPW>(h, H, k0, cols, b0, rows, p.kc, w_s, x_s, bars, p.stages,
                    par, ng, wkg, p.wk, lw0, acc);
       if (wkg < p.wk) store_partial<NPW>(p_s, p.n, p.u, cu, ng, wkg, acc);
       fold_slabs(p_s, p.n, p.wk);
-      cluster_arrive();
-      cluster_wait();             // every block's partials are written
+      hl::cluster_arrive();
+      hl::cluster_wait();         // every block's partials are written
 
       float4 v[4][CL];            // the cells' gates from the CL blocks
       if (live)
@@ -514,11 +514,11 @@ fwd(const bf16* __restrict__ xp, const bf16* __restrict__ w,
           if (t == T - 1) h_last[o] = hn;
         }
       }
-      cluster_arrive();           // this block is done with the partials
+      hl::cluster_arrive();       // this block is done with the partials
     }
     if (t + 1 < T) grid_arrive(bar);
   }
-  cluster_wait();                 // no block leaves while a peer reads it
+  hl::cluster_wait();             // no block leaves while a peer reads it
 }
 
 template <int NPW>

@@ -76,6 +76,13 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
                :: "r"(smem_addr(smem)), "l"(gmem));
 }
+// 16 bytes global -> shared through L2 only; zeros (and no read) where
+// !valid
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
+                                                 bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(smem)), "l"(gmem), "r"(valid ? 16 : 0));
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

@@ -101,43 +101,6 @@ __device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
                : "r"(smem_addr(p)));
 }
 
-// 16 bytes global -> shared through L2 only; zeros where !valid
-__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
-                                                 bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(smem)), "l"(gmem), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ unsigned cluster_rank() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// barrier.cluster: arrive has release, wait acquire semantics (the
-// defaults); a thread alternates them
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-
-// the shared-memory address `addr` of this block, in block `rank` of the
-// cluster
-__device__ __forceinline__ uint32_t map_rank(uint32_t addr, unsigned rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(r) : "r"(addr), "r"(rank));
-  return r;
-}
-__device__ __forceinline__ float ld_cluster(uint32_t addr) {
-  float v;
-  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
-               : "=f"(v) : "r"(addr) : "memory");
-  return v;
-}
-
 // The grid barrier, a monotone counter (zero at launch) that each block
 // raises once a step. arrive: after every thread of the block has
 // written its outputs of the step (the block barrier orders them before

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the warp-specialized kernels
 // (flash_fwd.cu and flash_bwd.cu; the fused lm_head next): wgmma with fp32
 // accumulators, its shared-memory matrix descriptors, the mbarrier
-// operations, TMA tile loads into an mbarrier, setmaxnreg, and the
+// operations, TMA tile loads into an mbarrier, setmaxnreg, the cluster
+// rank, barrier and distributed shared-memory loads, and the
 // host-side encoding of TMA tensor maps (4-D bf16 tiles, 2-D fp32 rows).
 //
 // Shared-memory layouts, as TMA writes them with a swizzle and wgmma
@@ -109,6 +110,22 @@ inline bool tile_map_f32(CUtensorMap* map, const void* base, int cols,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// the dynamic shared memory attribute of `kernel`, set once a device
+// (`done`, a bit a device, is kept by the kernel's own launcher: a helper
+// templated on the kernel's type would share it between kernels of one
+// signature)
+inline cudaError_t allow_smem(unsigned& done, const void* kernel, int smem) {
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 32 && (done >> dev & 1u)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err == cudaSuccess && dev < 32) done |= 1u << dev;
+  return err;
+}
+
 // the card's SM count, for persistent grids
 inline cudaError_t sm_count(int* sms) {
   int dev;
@@ -121,6 +138,48 @@ inline cudaError_t sm_count(int* sms) {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// this block's rank in its cluster, the cluster's blocks, the cluster's
+// index along x
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned cluster_blocks() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned cluster_id_x() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return r;
+}
+
+// barrier.cluster: arrive has release, wait acquire semantics (the
+// defaults); a thread alternates them
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// the shared-memory address `addr` of this block, in block `rank` of the
+// cluster
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, unsigned rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v) : "r"(addr) : "memory");
+  return v;
 }
 
 // wgmma shared-memory matrix descriptor: layout 1 = 128 B swizzle, 2 =
@@ -155,6 +214,17 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
                    "r"(bar),
                "r"(bytes)
                : "memory");
+}
+
+// ``bytes`` (a multiple of 16) from global to this block's shared memory,
+// both addresses 16-byte aligned, counted as tx bytes on the mbarrier
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // wait until the phase of parity ``parity`` has completed. A wait that

@@ -71,14 +71,21 @@ _SIGNATURES = {
     # q, k_new, v_new, k_cache, v_cache, starts, y, B, S, E, H, length,
     # q_sb, kn_sb, vn_sb, bf16, stream
     "hl_decode_attn": [_P] * 7 + [_I] * 9 + [_P],
-    # q, k_new, v_new, k_cache, v_cache, starts, y, part, B, S, E, H,
-    # length, rows, q_sb, kn_sb, vn_sb, bf16, stream
-    "hl_decode_attn_split": [_P] * 8 + [_I] * 10 + [_P],
-    # x, w, scale, y, M, N, K, x_bf16, scale_bf16, aligned, stream
-    "hl_q8_matmul": [_P] * 4 + [_I] * 6 + [_P],
+    # q, k_new, v_new, k_cache, v_cache, starts, y, part, counters, B, S,
+    # E, H, length, rows, q_sb, kn_sb, vn_sb, bf16, stream
+    "hl_decode_attn_split": [_P] * 9 + [_I] * 10 + [_P],
+    # (no arguments): K12's kernel launches so far
+    "hl_decode_split_kernels": [],
+    # x, w, scale, y, M, N, K, x_bf16, scale_bf16, aligned, kind, grid,
+    # cl, kr, stream
+    "hl_q8_matmul": [_P] * 4 + [_I] * 10 + [_P],
+    # stream
+    "hl_empty": [_P],
 }
 
 _lib = None
+_build_error = None      # the failed build's error, raised again
+_sms = {}                # device index -> multiprocessors
 build_seconds = None     # wall time of the last build in this process
 build_log = ""           # nvcc's output of that build (ptxas -v lines)
 
@@ -148,10 +155,18 @@ def build():
 
 
 def library():
-    """The loaded kernel library, built on first use."""
-    global _lib
+    """The loaded kernel library, built on first use. A build that failed
+    is not tried again in the same process: its error is raised again."""
+    global _lib, _build_error
+    if _build_error is not None:
+        raise _build_error
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        try:
+            path = build()
+        except RuntimeError as e:
+            _build_error = e
+            raise
+        lib = ctypes.CDLL(str(path))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
@@ -168,6 +183,19 @@ def check(err, name):
 def stream_of(tensor):
     import torch
     return torch.cuda.current_stream(tensor.device).cuda_stream
+
+
+def multiprocessors(device):
+    """The streaming multiprocessors of ``device`` (132 on an H100 SXM),
+    read once a device."""
+    import torch
+    idx = torch.device(device).index
+    if idx is None:
+        idx = torch.cuda.current_device()
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx) \
+            .multi_processor_count
+    return _sms[idx]
 
 
 def require_cuda(name, *tensors, dtypes=None):

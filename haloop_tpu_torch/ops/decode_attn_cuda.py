@@ -5,8 +5,10 @@ Both mirror ``haloop_tpu.ops.decode_attn``: the new token's k/v row is
 written into the caches at row ``length`` (in place; only that row) and y
 (B, E) is returned. K11 (``decode_attend_update``) holds a whole row's
 scores in one block and takes caches up to the JAX package's 10 MiB a row;
-K12 (``decode_attend_update_gridded``) splits S across blocks and merges
-the splits' online-softmax partials in a fixed order. ``route`` picks
+K12 (``decode_attend_update_gridded``) splits S across blocks, each
+split one pass over tiles of k and v in an online softmax, and the last
+split of a (row, head) to finish merges the splits' partials in split
+order, all in one launch. ``route`` picks
 the wrapper by shape, as the JAX package does. A CPU tensor takes the
 plain ``ops.decode_attn.decode_attend``; a CUDA tensor launches the kernel
 or raises.
@@ -15,12 +17,18 @@ or raises.
 import torch
 
 from haloop_tpu_torch import kernels
+from haloop_tpu_torch.kernels import multiprocessors
 from haloop_tpu_torch.ops import decode_attn as _da
 
 K11_CACHE_LIMIT = 10 * 2 ** 20   # bytes of one row's k and v caches
 THREADS = 128                    # csrc/decode_attn.cu: the block size
+# K12's tiling, as csrc/decode_attn.cu's K12<T, D> has it (16 bytes a lane
+# of k and of v): WARPS warps, ITER steps of 32 lanes each a tile, and
+# BLOCKS_PER_SM resident blocks an SM (the static_assert there)
+K12_WARPS, K12_ITER, K12_BLOCKS_PER_SM = 4, 4, 4
 launches = 0                     # K11 calls
-split_launches = 0               # K12 calls
+split_launches = 0               # K12 calls (one launch each)
+_scratch = {}                    # (device, stream) -> (part, counters) of K12
 
 
 def route(S, E, itemsize):
@@ -35,19 +43,44 @@ def route(S, E, itemsize):
     return None
 
 
-def split_rows(B, H, S, sms):
-    """K12's split: the largest of 512, 256, 128 rows that still gives two
-    blocks to each of the card's ``sms`` multiprocessors over the whole
-    cache, else 64."""
-    for rows in (512, 256, 128):
-        if B * H * -(-S // rows) >= 2 * sms:
-            return rows
-    return 64
+def tile_rows(D, itemsize):
+    """Rows of one K12 tile at head width D: 16 bytes a lane, so a row
+    takes D * itemsize / 16 lanes."""
+    return K12_WARPS * K12_ITER * 32 * 16 // (D * itemsize)
 
 
-def multiprocessors(device):
-    """The streaming multiprocessors of ``device`` (132 on an H100 SXM)."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
+def split_rows(B, H, n, D, itemsize, sms):
+    """K12's split over the ``n`` rows up to the new one: the largest
+    tile times a power of two that still gives each of the card's ``sms``
+    multiprocessors eight rounds of its K12_BLOCKS_PER_SM resident blocks
+    (short splits keep the last round's tail short; the rule comes from
+    timing 256- to 2048-row splits on an H100, PERF.md), else one tile."""
+    tile = tile_rows(D, itemsize)
+    want = 8 * K12_BLOCKS_PER_SM * sms
+    rows = tile
+    while rows < n and B * H * -(-n // (2 * rows)) >= want:
+        rows *= 2
+    return rows
+
+
+def kernel_launches():
+    """The kernels K12's C entry has launched in this process (one a
+    call; ``split_launches`` counts the calls)."""
+    return kernels.library().hl_decode_split_kernels()
+
+
+def _k12_scratch(device, stream, n_part, n_ctr):
+    """K12's fp32 partials and int32 counters on ``device``, kept between
+    calls: the kernel leaves the counters 0, and calls run in the order
+    of the stream they share, so each stream has its own."""
+    key = device.index, stream
+    part, ctr = _scratch.get(key, (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty(n_part, dtype=torch.float32, device=device)
+    if ctr is None or ctr.numel() < n_ctr:
+        ctr = torch.zeros(n_ctr, dtype=torch.int32, device=device)
+    _scratch[key] = part, ctr
+    return part, ctr
 
 
 def decode_attend_update(q, k_new, v_new, k_cache, v_cache, length,
@@ -132,7 +165,7 @@ def decode_attn_cuda(q, k_new, v_new, k_cache, v_cache, length, starts=None,
 
 def decode_attn_split_cuda(q, k_new, v_new, k_cache, v_cache, length,
                            starts=None, *, n_head):
-    """K12: a split launch and a merge launch, counted as one call."""
+    """K12: one launch a call."""
     global split_launches
     B, S, E = k_cache.shape
     length, starts = _check("decode_attend_update_gridded", q, k_new, v_new,
@@ -140,15 +173,19 @@ def decode_attn_split_cuda(q, k_new, v_new, k_cache, v_cache, length,
     y = torch.empty((B, E), dtype=k_cache.dtype, device=k_cache.device)
     if B == 0:
         return y
-    rows = split_rows(B, n_head, S, multiprocessors(k_cache.device))
-    part = torch.empty((B, n_head, length // rows + 1, E // n_head + 2),
-                       dtype=torch.float32, device=k_cache.device)
+    D = E // n_head
+    rows = split_rows(B, n_head, length + 1, D, k_cache.element_size(),
+                      multiprocessors(k_cache.device))
+    stream = kernels.stream_of(k_cache)
+    part, ctr = _k12_scratch(k_cache.device, stream,
+                             B * n_head * (length // rows + 1) * (D + 2),
+                             B * n_head)
     err = kernels.library().hl_decode_attn_split(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), starts.data_ptr() if starts is not None else None,
-        y.data_ptr(), part.data_ptr(), B, S, E, n_head, length, rows,
-        q.stride(0), k_new.stride(0), v_new.stride(0),
-        int(k_cache.dtype == torch.bfloat16), kernels.stream_of(k_cache))
+        y.data_ptr(), part.data_ptr(), ctr.data_ptr(), B, S, E, n_head,
+        length, rows, q.stride(0), k_new.stride(0), v_new.stride(0),
+        int(k_cache.dtype == torch.bfloat16), stream)
     kernels.check(err, "hl_decode_attn_split")
     split_launches += 1
     return y

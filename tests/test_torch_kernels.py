@@ -1377,7 +1377,8 @@ def test_decode_split_kernel_masked_splits(cuda, dtype):
     vc = torch.randn((B, S, E), generator=g).to(cuda, dtype)
     L = S - 2
     rows = decode_attn_cuda.split_rows(
-        B, H, S, decode_attn_cuda.multiprocessors(cuda))
+        B, H, L + 1, D, kc.element_size(),
+        decode_attn_cuda.multiprocessors(cuda))
     starts = torch.tensor([3 * rows + 1, 2 * rows, L], device=cuda)
     k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
     y = decode_attn_cuda.decode_attend_update_gridded(q, kn, vn, k1, v1, L,
@@ -1398,16 +1399,102 @@ def test_decode_split_kernel_masked_splits(cuda, dtype):
                                rtol=tol)
 
 
+@pytest.mark.cuda
+def test_decode_split_kernel_is_one_launch(cuda):
+    """One K12 call is one kernel launch (the merge runs in the split that
+    finishes last), counted once."""
+    B, S, H, D, L = 4, 4096, 12, 64, 4000
+    g = torch.Generator().manual_seed(5)
+    q, kn, vn = (torch.randn((B, H * D), generator=g).to(cuda, torch.bfloat16)
+                 for _ in range(3))
+    kc = torch.randn((B, S, H * D), generator=g).to(cuda, torch.bfloat16)
+    vc = torch.randn((B, S, H * D), generator=g).to(cuda, torch.bfloat16)
+    starts = torch.arange(B, dtype=torch.int32, device=cuda)
+    decode_attn_cuda.decode_attend_update_gridded(q, kn, vn, kc, vc, L,
+                                                  starts, n_head=H)
+    before = (decode_attn_cuda.split_launches,
+              decode_attn_cuda.kernel_launches())
+    for _ in range(3):
+        decode_attn_cuda.decode_attend_update_gridded(q, kn, vn, kc, vc, L,
+                                                      starts, n_head=H)
+    torch.cuda.synchronize()
+    assert decode_attn_cuda.split_launches - before[0] == 3
+    assert decode_attn_cuda.kernel_launches() - before[1] == 3
+
+
+@pytest.mark.cuda
+def test_decode_split_kernel_on_two_streams(cuda):
+    """K12 calls in flight on two streams at once, each with the counters
+    of its own stream, give the bits of the same calls on one stream."""
+    B, S, H, D, L = 4, 4096, 12, 64, 4000
+    g = torch.Generator().manual_seed(6)
+    args = []
+    for _ in range(2):
+        q, kn, vn = (torch.randn((B, H * D), generator=g)
+                     .to(cuda, torch.bfloat16) for _ in range(3))
+        kc = torch.randn((B, S, H * D), generator=g).to(cuda, torch.bfloat16)
+        vc = torch.randn((B, S, H * D), generator=g).to(cuda, torch.bfloat16)
+        args.append((q, kn, vn, kc, vc))
+    want = [decode_attn_cuda.decode_attend_update_gridded(*a, L, n_head=H)
+            for a in args]
+    torch.cuda.synchronize()
+    side = [torch.cuda.Stream(cuda) for _ in range(2)]
+    got = [None, None]
+    for _ in range(3):
+        for i in range(2):
+            side[i].wait_stream(torch.cuda.current_stream(cuda))
+            with torch.cuda.stream(side[i]):
+                got[i] = decode_attn_cuda.decode_attend_update_gridded(
+                    *args[i], L, n_head=H)
+        torch.cuda.synchronize()
+        assert all(torch.equal(w, y) for w, y in zip(want, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3])
+def test_decode_split_kernel_planted_faults(cuda, B):
+    """The design's faults, run through K12 itself, read beyond 1e-2 of
+    the largest |y|: the new row read from the stale cache (K12 fed the
+    cache's old row) and the merge dropping the last split (K12 at the row
+    before it, fed that row)."""
+    S, H, D, L = 2048, 12, 64, 1500
+    E = H * D
+    g = torch.Generator().manual_seed(B)
+    q, kn, vn = (torch.randn((B, E), generator=g).to(cuda, torch.bfloat16)
+                 for _ in range(3))
+    kc = torch.randn((B, S, E), generator=g).to(cuda, torch.bfloat16)
+    vc = torch.randn((B, S, E), generator=g).to(cuda, torch.bfloat16)
+    rows = decode_attn_cuda.split_rows(
+        B, H, L + 1, D, 2, decode_attn_cuda.multiprocessors(cuda))
+    k12 = decode_attn_cuda.decode_attend_update_gridded
+    want = decode_attn.decode_attend(q, kn, vn, kc.clone(), vc.clone(), L,
+                                     n_head=H)
+    y = k12(q, kn, vn, kc.clone(), vc.clone(), L, n_head=H)
+    last = L // rows * rows - 1
+    faults = (k12(q, kc[:, L], vc[:, L], kc.clone(), vc.clone(), L,
+                  n_head=H),
+              k12(q, kc[:, last], vc[:, last], kc.clone(), vc.clone(), last,
+                  n_head=H))
+    top = want.float().abs().max().item()
+    assert (y.float() - want.float()).abs().max().item() <= 1e-2 * top
+    for bad in faults:
+        assert (bad.float() - want.float()).abs().max().item() > 1e-2 * top
+
+
 def test_decode_split_rows_fill_the_card():
-    """At the H100 SXM's 132 multiprocessors; a card with fewer
-    takes longer splits."""
-    assert decode_attn_cuda.split_rows(32, 12, 4096, 132) == 512
-    assert decode_attn_cuda.split_rows(8, 12, 3584, 132) == 512
-    assert decode_attn_cuda.split_rows(1, 12, 4096, 132) == 128
-    assert decode_attn_cuda.split_rows(1, 12, 3584, 132) == 128
-    assert decode_attn_cuda.split_rows(1, 2, 128, 132) == 64
-    assert decode_attn_cuda.split_rows(2, 12, 3584, 132) == 256
-    assert decode_attn_cuda.split_rows(2, 12, 3584, 66) == 512
+    """At the H100 SXM's 132 multiprocessors, over the rows up to the new
+    one, in whole tiles (64 rows at D=64 in bf16): eight rounds of four
+    blocks an SM where the rows allow; a card with fewer SMs takes longer
+    splits."""
+    rows = decode_attn_cuda.split_rows
+    assert rows(32, 12, 4001, 64, 2, 132) == 256
+    assert rows(32, 12, 4001, 64, 2, 66) == 512
+    assert rows(64, 12, 4001, 64, 2, 132) == 512
+    assert rows(8, 12, 3584, 64, 2, 132) == 64
+    assert rows(1, 12, 4001, 64, 2, 132) == 64
+    assert rows(1, 2, 128, 16, 2, 132) == 256
+    assert rows(32, 12, 4001, 64, 4, 132) == 256
+    assert decode_attn_cuda.tile_rows(64, 2) == 64
 
 
 # ------------------------------------------- int8-weight product (K13)
@@ -1447,6 +1534,36 @@ def test_q8_kernel_matches_plain(cuda, N, K, M, dtype):
             torch.testing.assert_close(y.float(), want.float(), atol=2e-2,
                                        rtol=2e-2)
         assert torch.equal(y, q8_matmul_cuda.q8_matmul(x, w_q, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,K", Q8_SHAPES[:-1])
+@pytest.mark.parametrize("M", [1, 32])
+def test_q8_kernel_planted_fault(cuda, N, K, M):
+    """The design's fault, run through K13 itself: the plan's last k slice
+    (a cluster rank's range, or the last stage) dropped fails the bf16
+    tolerance."""
+    x, w_q, scale = _q8_inputs(cuda, M, N, K, torch.bfloat16, N + K + M)
+    want = q8_matmul.q8_matmul(x, w_q, scale)
+    bad, _ = chip_smoke.k13_dropped_slice(
+        torch, x, w_q, decode_attn_cuda.multiprocessors(cuda))
+    y = q8_matmul_cuda.q8_matmul(bad, w_q, scale)
+    assert not torch.isclose(y.float(), want.float(), atol=2e-2,
+                             rtol=2e-2).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,K", [(2304, 768), (768, 768), (1000, 784)])
+@pytest.mark.parametrize("M", [1, 17, 32])
+def test_q8_bulk_gives_the_bits_of_the_stripes(cuda, N, K, M):
+    """q8_bulk, the stripes fed by cp.async.bulk that the probe times
+    against K13, gives K13's bits where K13 plans stripes without a
+    cluster."""
+    x, w_q, scale = _q8_inputs(cuda, M, N, K, torch.bfloat16, N + K + M)
+    assert q8_matmul_cuda.plan(M, N, K, True, kernels.multiprocessors(
+        cuda))[::2] == (0, 1)
+    assert torch.equal(q8_matmul_cuda.q8_bulk_cuda(x, w_q, scale),
+                       q8_matmul_cuda.q8_matmul(x, w_q, scale))
 
 
 @pytest.mark.cuda
