@@ -23,10 +23,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      (LSTM backward sweep) against the plain lstm_scan_bwd
  5b. the int8 mode (hac --rnn-q8): K1-q8 (with and without residuals)
      and K2-q8 against the plain lstm_scan_q8 / lstm_scan_bwd_q8 at the
-     same shapes, each limit between the reading and two planted faults
-     (the exact mode's answer; K2-q8's row scale taken over a block's own
-     columns), the same bits twice, times beside the bound (no PyTorch
-     call computes an int8 LSTM; the exact mode's cuDNN times beside)
+     same shapes, the route each call took (persistent at the main
+     paths' widths), the same bits twice and the same bits as the
+     per-step kernels, each limit between the reading and planted
+     faults (the exact mode's answer; K2-q8's row scale taken over a
+     block's own columns; K1-q8's, one persistent block on a step-old
+     hq), times beside the bound (no PyTorch call computes an int8 LSTM;
+     the exact mode's cuDNN times beside)
   6. kernel K4 (CTC backward lattice) against the plain ctc_grad, and the
      same bits on two more runs
   7. the training slice through its entry point: ``hac --arch lstm:512
@@ -50,11 +53,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
  11. lstm:512 ``--star-penalty -0.5``: one train step at batch 48 x 12 s,
      the same checks, train utt/s
  11b. --rnn-q8 on every acoustic path (counts reset just before each,
-     read just after: K1-q8/K2-q8 only, no exact-mode K1/K2): ``hac
+     read just after: K1-q8/K2-q8 only, no exact-mode K1/K2, each on the
+     persistent kernels but K1-q8 below H = 1024): ``hac
      --arch lstm:512 --rnn-q8 --train --eval --save`` and ``--init
      last.pt --test`` through loop.main; a 48 x 12 s train step and
      transcription batch (kernel path against the plain path, the int8
-     loss against the exact one, utt/s, a profile); an
+     loss against the exact one, utt/s, a profile with no quant_rows
+     launch); an
      rnn-transducer:lstm:512 train step and transcription batch; an
      lstm:512 --star-penalty -0.5 train step
  12. entry-point runs: ``hac --arch rnn-transducer-tiny:512 --train
@@ -442,21 +447,24 @@ def within(torch, got, want, tol):
 
 
 def lstm_plan(torch, dev, kind, H, dtype):
-    """(route, plan) of K1 ("fwd") or K2 ("bwd") at width H on this card
-    (``nn.lstm_cuda.route`` with what ``hl_lstm_card`` reports)."""
+    """(route, plan) of K1 ("fwd"), K2 ("bwd"), K1-q8 ("fwd_q8") or K2-q8
+    ("bwd_q8") at width H on this card (``nn.lstm_cuda.route`` with what
+    ``hl_lstm_card`` reports)."""
     from haloop_tpu_torch.nn import lstm_cuda
     sms, smem, ncl = lstm_cuda.card(dev)
     return lstm_cuda.route(kind, dtype, H, 0, sms, smem, ncl[kind])
 
 
 def fault_units(torch, dev, kind, H):
-    """The hidden units of one block (K1) or of one cluster (K2) of the
-    persistent kernel at width H: the second cluster's first block, or the
-    second cluster."""
-    _, plan = lstm_plan(torch, dev, kind, H, torch.bfloat16)
+    """The hidden units of one block (K1, K1-q8) or of one cluster (K2)
+    of the persistent kernel's plan at width H: the second cluster's first
+    block, or the second cluster."""
+    from haloop_tpu_torch.nn import lstm_cuda
+    sms, smem, ncl = lstm_cuda.card(dev)
+    plan = lstm_cuda.persist_plan(kind, H, sms, smem, ncl[kind])
     cu = plan.c * plan.u
     first = min(cu, H - plan.u)
-    return torch.arange(first, min(first + (plan.u if kind == "fwd" else cu),
+    return torch.arange(first, min(first + (cu if kind == "bwd" else plan.u),
                                    H), device=dev)
 
 
@@ -828,6 +836,36 @@ def k2_q8_block_max(dys, acts, c_prev, cs, wq, s, dh_last, dc_last, ju=16):
     return dgates, dh, dc
 
 
+def k1_q8_stale_hq(wq, s, xp, h0, c0, units):
+    """A planted fault: plain K1-q8 (nn.lstm.lstm_scan_q8) with the gates
+    of ``units`` (one persistent block's) computed from the quantized h of
+    the step before the right one (h_{t-2}, h0 at t = 1) from the third
+    step on, what a block that passes a missing or early grid barrier
+    multiplies. Returns ys."""
+    import torch
+    from haloop_tpu_torch.nn import lstm
+    T, B, H4 = xp.shape
+    H = H4 // 4
+    rows = torch.cat([g * H + units for g in range(4)])
+    sdiv = (s / 127.0).float()
+    wt = wq.T
+    c = c0.float()
+    hq = [lstm.q8_row(h0.float())]          # hq of h_{t-1}
+    ys = torch.empty((T, B, H), dtype=xp.dtype, device=xp.device)
+    for t in range(T):
+        acc = lstm.int_matmul(hq[t], wt)
+        if t >= 2:
+            acc[:, rows] = lstm.int_matmul(hq[t - 1], wt[:, rows])
+        i, f, g, o = (xp[t].float() + acc * sdiv).chunk(4, dim=-1)
+        i, f, g, o = (torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g),
+                      torch.sigmoid(o))
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        ys[t] = h.to(xp.dtype)
+        hq.append(lstm.q8_row(h))
+    return ys
+
+
 def rel_err(got, want):
     """||got - want|| / ||want|| over all elements."""
     return ((got.float() - want.float()).norm() /
@@ -836,37 +874,68 @@ def rel_err(got, want):
 
 def phase_lstm_q8(torch, dev, k1, k1r, k2):
     """K1-q8 (with and without residuals) and K2-q8 against their plain
-    versions at LSTM_SHAPES, limits between the readings and two planted
-    faults (the exact mode's answer; K2-q8's m over a block's own
-    columns), the same bits on a second run, and times beside the bound.
-    No PyTorch call computes an int8 LSTM (library: none); the exact
-    mode's cuDNN times of phases 2 and 5 are printed beside, as such."""
+    versions at LSTM_SHAPES: the route each call took (the persistent
+    kernels at the main paths' widths), limits between the readings and
+    planted faults (the exact mode's answer; K2-q8's m over a block's own
+    columns; one persistent K1-q8 block on a step-old hq), the same bits
+    on a second run and as the per-step kernels (the integer sums are
+    exact in any order), and times beside the bound. No PyTorch call
+    computes an int8 LSTM (library: none); the exact mode's cuDNN times
+    of phases 2 and 5 are printed beside, as such."""
     from haloop_tpu_torch.nn import lstm, lstm_cuda
     fwd, res, bwd = {}, {}, {}
     for T, B, H, name, timed in LSTM_SHAPES:
         dtype = getattr(torch, name)
         w, xp, h0, c0 = lstm_inputs(torch, dev, T, B, H, dtype)
         wq, s = lstm.quantize_rows(w)
+        route, plan = lstm_plan(torch, dev, "fwd_q8", H, dtype)
+        before = dict(lstm_cuda.route_launches)
         out = lstm_cuda.lstm_fwd_q8_cuda(wq, s, xp, h0, c0)
         out_r = lstm_cuda.lstm_fwd_q8_cuda(wq, s, xp, h0, c0, residuals=True)
         torch.cuda.synchronize()
+        took = {k: v - before[k] for k, v in lstm_cuda.route_launches.items()
+                if v != before[k]}
+        check(took == {f"fwd_q8_{route}": 2},
+              f"K1-q8 took {took}, not {route}")
+        check(route == "persist" or H not in (1536, 1024, 512) or
+              H < lstm_cuda.Q8_FWD_MIN_H,
+              f"K1-q8 at the main paths' width {H} did not take the "
+              f"persistent kernel")
         check(all(torch.equal(a, b) for a, b in zip(out, out_r)),
               f"K1-q8 with residuals changes ys/h/c at {(T, B, H, name)}")
+        step = lstm_cuda.lstm_fwd_q8_cuda(wq, s, xp, h0, c0, residuals=True,
+                                          per_step=True)
+        as_step = all(torch.equal(a, b) for a, b in zip(out_r, step))
         want = lstm.lstm_scan_q8(wq, s, xp, h0, c0, residuals=True)
         err = max(rel_err(a, b) for a, b in zip(out_r, want))
-        fault = min(rel_err(a, b) for a, b in
-                    zip(lstm.lstm_scan(w, xp, h0, c0), want))
+        faults = {"the exact mode": min(
+            rel_err(a, b) for a, b in zip(lstm.lstm_scan(w, xp, h0, c0),
+                                          want))}
+        if dtype == torch.bfloat16 and H % 16 == 0 and T >= 3:
+            # one block's units of the persistent kernel's plan (its route
+            # or not)
+            units = fault_units(torch, dev, "fwd_q8", H)
+            faults[f"units {int(units[0])}..{int(units[-1])} on a step-old "
+                   f"hq"] = rel_err(k1_q8_stale_hq(wq, s, xp, h0, c0, units),
+                                    want[0])
         same = all(torch.equal(a, b) for a, b in
                    zip(lstm_cuda.lstm_fwd_q8_cuda(wq, s, xp, h0, c0), out))
         max_err = max((a.float() - b.float()).abs().max().item()
                       for a, b in zip(out_r, want))
-        print(f"K1-q8 T={T} B={B} H={H} {name}: residual mode the same "
-              f"bits; rel err of ys, h, c, acts, cs at most {err:.3e} (max "
-              f"|d| {max_err:.3e}; limit {K1Q8_REL}); planted fault (the "
-              f"exact mode) {fault:.3e}; the same bits twice: {same}",
-              flush=True)
-        check(err <= K1Q8_REL < fault and same,
+        grid = (f"grid {plan.blocks} blocks = {plan.clusters} clusters of "
+                f"{plan.c}, {plan.u} units a block, {plan.stages}-slot "
+                f"ring, {plan.smem} B" if plan else "one launch a step")
+        print(f"K1-q8 T={T} B={B} H={H} {name}: route {route} ({grid}); "
+              f"launches by route {took}; residual mode the same bits; "
+              f"rel err of ys, h, c, acts, cs at most {err:.3e} (max |d| "
+              f"{max_err:.3e}; limit {K1Q8_REL}); planted faults "
+              + ", ".join(f"{n} {v:.3e}" for n, v in faults.items())
+              + f"; the same bits twice: {same}; as the per-step kernels: "
+              f"{as_step}", flush=True)
+        check(err <= K1Q8_REL and same and as_step,
               f"K1-q8 disagrees with lstm_scan_q8 at {(T, B, H, name)}")
+        check(all(v > K1Q8_REL for v in faults.values()),
+              f"K1Q8_REL does not catch a planted fault at {(T, B, H)}")
 
         g = torch.Generator().manual_seed(T + H)
         dys = torch.randn((T, B, H), generator=g).to(dev, torch.bfloat16)
@@ -875,8 +944,19 @@ def phase_lstm_q8(torch, dev, k1, k1r, k2):
         acts, cs, c0r = want[3], want[4], c0.to(torch.bfloat16)
         c_prev = torch.cat([c0r[None], cs[:-1]])
         bargs = (dys, acts, cs, c0r, wq, s, dh, dc)
+        route, plan = lstm_plan(torch, dev, "bwd_q8", H, torch.bfloat16)
+        before = dict(lstm_cuda.route_launches)
         got = lstm_cuda.lstm_bwd_q8_cuda(*bargs)
         torch.cuda.synchronize()
+        took = {k: v - before[k] for k, v in lstm_cuda.route_launches.items()
+                if v != before[k]}
+        check(took == {f"bwd_q8_{route}": 1},
+              f"K2-q8 took {took}, not {route}")
+        check(route == "persist" or H not in (1536, 1024, 512),
+              f"K2-q8 at the main paths' width {H} did not take the "
+              f"persistent kernel")
+        as_step = all(torch.equal(a, b) for a, b in zip(
+            got, lstm_cuda.lstm_bwd_q8_cuda(*bargs, per_step=True)))
         want_b = lstm.lstm_scan_bwd_q8(dys, acts, c_prev, cs, wq, s, dh, dc)
         errs = {k: rel_err(a, b) for k, a, b in
                 zip(("dgates", "dh0", "dc0"), got, want_b)}
@@ -884,18 +964,26 @@ def phase_lstm_q8(torch, dev, k1, k1r, k2):
             "exact mode": lstm.lstm_scan_bwd(dys, acts, c_prev, cs,
                                              w.to(torch.bfloat16), dh, dc),
             "m over a block's columns": k2_q8_block_max(
-                dys, acts, c_prev, cs, wq, s, dh, dc)}
+                dys, acts, c_prev, cs, wq, s, dh, dc,
+                ju=plan.u if plan else 16)}
         read = {n: (rel_err(f[0], want_b[0]), rel_err(f[1], want_b[1]))
                 for n, f in faults.items()}
         same = all(torch.equal(a, b) for a, b in
                    zip(lstm_cuda.lstm_bwd_q8_cuda(*bargs), got))
-        print(f"K2-q8 T={T} B={B} H={H}: rel err dgates {errs['dgates']:.3e}"
-              f" dh0 {errs['dh0']:.3e} dc0 {errs['dc0']:.3e} (limits "
-              f"{K2Q8_REL}); planted faults (dgates, dh0): "
+        grid = (f"grid {plan.blocks} blocks = {plan.clusters} clusters of "
+                f"{plan.c}, {plan.u} units a block, two grid barriers a "
+                f"step, {plan.smem} B" if plan else
+                "one launch a step")
+        print(f"K2-q8 T={T} B={B} H={H}: route {route} ({grid}); rel err "
+              f"dgates {errs['dgates']:.3e} dh0 {errs['dh0']:.3e} dc0 "
+              f"{errs['dc0']:.3e} (limits {K2Q8_REL}); planted faults "
+              f"(dgates, dh0): "
               + ", ".join(f"{n} {a:.3e} {b:.3e}" for n, (a, b) in
                           read.items())
-              + f"; the same bits twice: {same}", flush=True)
-        check(all(errs[k] <= K2Q8_REL[k] for k in errs) and same,
+              + f"; the same bits twice: {same}; as the per-step kernels: "
+              f"{as_step}", flush=True)
+        check(all(errs[k] <= K2Q8_REL[k] for k in errs) and same and
+              as_step,
               f"K2-q8 disagrees with lstm_scan_bwd_q8 at {(T, B, H, name)}")
         check(all(a > K2Q8_REL["dgates"] and b > K2Q8_REL["dh0"]
                   for a, b in read.values()),
@@ -1018,13 +1106,14 @@ def reset_counts():
         lstm_cuda.route_launches[key] = 0
 
 
-def check_persistent(path):
-    """Every K1 and K2 call since reset_counts took the persistent
-    kernels (the main paths' widths, 1536, 1024 and 512, in bf16)."""
+def check_persistent(path, also=()):
+    """Every K1 and K2 call (and K1-q8 and K2-q8) since reset_counts took
+    the persistent kernels (the main paths' widths, 1536, 1024 and 512, in
+    bf16), or a route named in ``also``."""
     from haloop_tpu_torch.nn import lstm_cuda
     taken = {k: v for k, v in lstm_cuda.route_launches.items() if v}
     print(f"{path}: K1/K2 launches by route {taken}", flush=True)
-    check(taken and all(k.endswith("_persist") for k in taken),
+    check(taken and all(k.endswith("_persist") or k in also for k in taken),
           f"{path}: K1/K2 did not all take the persistent kernels: {taken}")
 
 
@@ -1648,10 +1737,15 @@ def phase_rnn_q8(torch, dev, tmp, card):
     loop.main (--train 2 steps, eval, save; then --init last.pt --test),
     a 48 x 12 s train step and transcription batch, an
     rnn-transducer:lstm:512 train step and transcription batch, and an
-    lstm:512 --star-penalty -0.5 train step; the kernel path against the
-    plain path, the int8 loss against the exact one, utt/s."""
+    lstm:512 --star-penalty -0.5 train step; the routes each took, the
+    kernel path against the plain path, the int8 loss against the exact
+    one, utt/s, and no quant_rows launch in a train step's profile."""
     from haloop_tpu_torch import loop
+    from haloop_tpu_torch.nn import lstm_cuda
     paths = {}
+    # K1-q8 below Q8_FWD_MIN_H (the RNN-T's prediction net, H = 512) takes
+    # the per-step kernel; every other call is persistent
+    short = ("fwd_q8_tc_step",) if lstm_cuda.Q8_FWD_MIN_H > 512 else ()
 
     # 1. the entry point: train, eval, save; then --init last.pt --test
     exp = Path(tmp) / "train-q8"
@@ -1672,6 +1766,7 @@ def phase_rnn_q8(torch, dev, tmp, card):
     check_counts("hac --rnn-q8 --train", paths["q8_train"], dict(
         lstm_fwd_q8_residual=6, lstm_bwd_q8=6, lstm_fwd_q8=3,
         ctc_fwd_history=2, ctc_bwd=2, ctc_fwd=1))
+    check_persistent("hac --rnn-q8 --train", short)
     check((exp / "last.pt").exists() and (exp / "best.pt").exists(),
           "hac --rnn-q8: last.pt and best.pt not written")
     reset_counts()
@@ -1687,6 +1782,7 @@ def phase_rnn_q8(torch, dev, tmp, card):
           f"launches {paths['q8_test']}", flush=True)
     check_counts("hac --rnn-q8 --test", paths["q8_test"],
                  dict(lstm_fwd_q8=3, ctc_fwd=1))
+    check_persistent("hac --rnn-q8 --test", short)
 
     # 2. lstm:512 at batch 48 x 12 s: a train step, a transcription batch
     system = make_system(torch, dev, "--arch", "lstm:512", "--rnn-q8")
@@ -1698,6 +1794,7 @@ def phase_rnn_q8(torch, dev, tmp, card):
     check_counts("--rnn-q8 train step", paths["q8_ctc_train_step"], dict(
         lstm_fwd_q8_residual=3, lstm_bwd_q8=3, ctc_fwd_history=1,
         ctc_bwd=1))
+    check_persistent("--rnn-q8 train step")
 
     def transcribe():
         _, feats, feat_lens, _ = system._forward_impl(*batch, train=False)
@@ -1710,6 +1807,7 @@ def phase_rnn_q8(torch, dev, tmp, card):
     paths["q8_ctc_eval"] = counts()
     check_counts("--rnn-q8 transcription batch", paths["q8_ctc_eval"],
                  dict(lstm_fwd_q8=3, ctc_fwd=1))
+    check_persistent("--rnn-q8 transcription batch")
     print(f"lstm:512 --rnn-q8, 48 x 12 s: launches, train step "
           f"{paths['q8_ctc_train_step']}; transcription "
           f"{paths['q8_ctc_eval']}", flush=True)
@@ -1723,7 +1821,15 @@ def phase_rnn_q8(torch, dev, tmp, card):
           f"48 x 12 s utterances: {48 / sec * 1e3:.2f} utt/s ({sec:.3f} ms "
           f"per step, median of 5; {[round(t, 3) for t in times]}) on "
           f"{card}", flush=True)
-    profile_step(torch, step, "one --rnn-q8 train step")
+    events, by_name = profile_step(torch, step, "one --rnn-q8 train step")
+    # K2-q8's row quantization runs inside its persistent launch: no
+    # quant_rows launch a step (1,155 a train step on the per-step route;
+    # the route counts above show none ran either)
+    quant = sum(n for name, (n, _) in by_name.items() if "quant_rows" in name)
+    print(f"--rnn-q8 train step: {events} device events, {quant} of them "
+          f"quant_rows", flush=True)
+    check(quant == 0,
+          "--rnn-q8 train step: K2-q8's per-row quantization launched")
     with torch.inference_mode():
         sec, times = host_ms(torch, transcribe)
     print(f"lstm:512 --rnn-q8 eval forward+decode, 48 x 12 s utterances: "
@@ -1744,6 +1850,7 @@ def phase_rnn_q8(torch, dev, tmp, card):
                  paths["q8_transducer_train"],
                  dict(lstm_fwd_q8_residual=5, lstm_bwd_q8=5, joint_lse=1,
                       joint_lse_bwd=1))
+    check_persistent("--rnn-q8 transducer train step", short)
 
     def transcribe():
         _, feats, feat_lens, _ = system._forward_impl(*batch, train=False)
@@ -1758,6 +1865,7 @@ def phase_rnn_q8(torch, dev, tmp, card):
     check_counts("--rnn-q8 transducer transcription",
                  paths["q8_transducer_serve"], dict(lstm_fwd_q8=5,
                                                     joint_lse=1))
+    check_persistent("--rnn-q8 transducer transcription", short)
     print(f"rnn-transducer:lstm:512 --rnn-q8, batch {B}: launches, train "
           f"step {paths['q8_transducer_train']}; transcription "
           f"{paths['q8_transducer_serve']}", flush=True)
@@ -1790,6 +1898,7 @@ def phase_rnn_q8(torch, dev, tmp, card):
     check_counts("--rnn-q8 Star-CTC train step", paths["q8_star_train"],
                  dict(lstm_fwd_q8_residual=3, lstm_bwd_q8=3,
                       star_fwd_history=1, star_bwd=1))
+    check_persistent("--rnn-q8 Star-CTC train step")
     check_against_plain(torch, system, batch, "--rnn-q8 Star-CTC train step")
 
     def step():
@@ -3457,7 +3566,8 @@ def hala_curve(torch):
 
 def profile_step(torch, step, what="one train step"):
     """A torch.profiler breakdown of one call of ``step``: device time by
-    kernel, and the device's busy share of the step's span. One traced
+    kernel, and the device's busy share of the step's span; returns the
+    device events and {kernel name: (count, ns)}. One traced
     warm-up call comes first and is discarded: the first milliseconds
     of device records a profiler takes can go missing. Device activity
     only, read from the raw records: host op records, and the profiler's
@@ -3482,7 +3592,7 @@ def profile_step(torch, step, what="one train step"):
             prof.step()
     if not events:
         print("profiler: no device events recorded", flush=True)
-        return
+        return 0, {}
     t0 = min(s for _, s, _ in events)
     t1 = max(e for _, _, e in events)
     busy, cur_s, cur_e = 0, None, None
@@ -3506,6 +3616,7 @@ def profile_step(torch, step, what="one train step"):
                                )[:14]:
         print(f"  {t / 1e6:9.3f} ms {100 * t / total:5.1f}%  x{n:<5d} "
               f"{name[:90]}", flush=True)
+    return len(events), by_name
 
 
 def main():

@@ -29,46 +29,64 @@
 // operation rounds once, as the plain version's tensor ops do.
 //
 // What bounds them on the H100: the same as the exact kernels. Every step
-// reads all of wq (4H x H: 9.4 MB at H=1536, half of bf16 W_hh) and the
+// needs all of wq (4H x H: 9.4 MB at H=1536, half of bf16 W_hh) and the
 // steps are strictly sequential; at (T, B, H) = (385, 48, 1536) one step
-// is 0.9 G int8 operations (0.46 us of tensor-core time) against ~9.4 MB
-// of W and ~7 MB of hq from the 50 MB L2 (each block reads all of hq), so
-// a step is bound by streaming from L2 and by the fixed cost of launches.
+// is 0.9 G int8 operations (0.46 us of tensor-core time), so what a step
+// costs is moving its operands and synchronizing the SMs.
 //
-// This design keeps the exact kernels' structure: one launch per step
-// on the caller's stream, a block owning a few hidden units and all four
-// gate rows of each, so the cell update is block-local.
-//  * K1-q8: 16 units x 64 batch rows a block, 8 warps (an m-tile and four
-//    8-row n-tiles each). The exact kernel reads its h from ys[t-1],
-//    rounded to W's dtype; here h must be the fp32 one (a bf16-rounded h
-//    quantizes differently in ~5% of elements), so step t writes its
-//    units' hq (B, H int8) into the half of a double buffer that step t+1
-//    reads (parity of t); a small launch quantizes h0 first.
-//  * K2-q8: m needs all 4H columns of a row, which every block of a step
-//    produces. Each step's block writes its cells' fp32 dgs and, per batch
-//    row, the maximum of its own cells (pmax, B x blocks); then a second
-//    launch, one block a batch row, reduces the row's partial maxima and
-//    quantizes the whole row with that one m into q and m / 127, which
-//    the next step's product reads. 16 units x 64 batch rows a block, 4
-//    warps (one m-tile and two n-tiles each), over wq^T (H, 4H),
-//    transposed once a call by the wrapper. A last product-only launch
-//    forms dh0.
-//  * H % 32 == 0 (every hac width): tensor cores, mma.sync m16n8k32 s8
-//    with int32 sums, both operands streamed through shared memory in
-//    128-byte K slices by a 4-stage cp.async pipeline; fragments are read
-//    as 32-bit words from rows padded to 144 bytes (no bank conflicts).
-//  * Otherwise: CUDA-core int32 multiply-adds, each thread its own cells'
-//    dot products from global memory (the small unaligned shapes only).
-// Later perf_opt: a persistent kernel with wq resident in shared memory
-// across the SMs (9.4 MB at H=1536 fits the 132 SMs' ~30 MB) and a
-// grid-wide barrier a step, which removes the L2 stream, the launches,
-// and K2-q8's second launch.
+// The design (persist_q8 below, on persist.cuh's skeleton, as lstm_fwd.cu
+// and lstm_bwd.cu run the bf16 modes): one persistent cooperative launch
+// a layer call, one block an SM, blocks in clusters (4 for K1-q8, 8 for
+// K2-q8, nn/lstm_cuda.py CLUSTERS), each block's int8 slice of wq
+// resident in shared memory for the whole sequence (at lstm:512 16 units
+// a block, 96 blocks: 102.4 KB for K1-q8, 100.4 KB for K2-q8), the int32
+// partial products of a cluster summed through distributed shared memory
+// in rank order. The
+// integer sums are exact in any order, so both kernels give the per-step
+// kernels' bits.
+//  * K1-q8: cluster q owns 4u consecutive units and their four gate rows
+//    of wq; block r keeps columns [r kc, (r + 1) kc) of those rows. The
+//    launch's first phase quantizes h0 (each block its units) into half 0
+//    of hq; step t streams the block's kc columns of hq (the half of t's
+//    parity) through an mbarrier ring (cp.async.cg), multiplies them by
+//    its slab (mma.sync m16n8k32, int32 sums), sums its u units' gates
+//    over the cluster, runs `cell` (the per-step kernels' arithmetic),
+//    writes its units' hq of h_t into the other half, with c, ys and the
+//    residuals (moved after the arrive, those read no faster, c and ys
+//    slower), and arrives at the grid barrier.
+//  * K2-q8: cluster q owns 8u units; block r keeps columns [r kc,
+//    (r + 1) kc) of 4H of their columns of wq, read from wq as it is and
+//    transposed on the way into shared memory. m needs all 4H columns of a
+//    batch row, which every block produces, so a step has two grid
+//    barriers: each block forms its cells' deltas, raises its maximum of
+//    |dgates * s| of each row in a zeroed global buffer (atomicMax on the
+//    bits of non-negative floats) and arrives; stores dgates and dc while
+//    the others arrive; then reads each row's m, quantizes its own cells
+//    into q (int8, B x 4H) and arrives again; the next product reads q
+//    (1 byte an element) through the ring. dh0 is one more product in
+//    the same launch.
+//  * The batch loops over 48-row tiles (K2-q8: two barriers a tile).
+// Other routes, chosen by the wrapper before the launch (nn/lstm_cuda.py
+// route), one launch a step: fp32 x_proj (K1-q8), shapes no plan fits
+// (H = 2048 would need 18 units a block), and K1-q8 sequences shorter
+// than Q8_FWD_MIN_T steps (the persistent launch's set-up against a few
+// steps):
+//  * H % 32 == 0: step_tc, tensor cores (mma.sync m16n8k32 s8 with int32
+//    sums), both operands streamed through shared memory in 128-byte K
+//    slices by a 4-stage cp.async pipeline, 16 units x 64 batch rows a
+//    block; K1-q8's h0 quantized by a small launch first; K2-q8 over
+//    wq^T (H, 4H), transposed once a call by the wrapper, each step's
+//    block writing its cells' fp32 dgs and a partial row maximum, then a
+//    launch a batch row (quant_rows) quantizing the whole row with one m,
+//    and a last product-only launch forming dh0.
+//  * Otherwise: step_int, CUDA-core int32 multiply-adds, each thread its
+//    own cells' dot products from global memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma.cuh"
+#include "persist.cuh"
 
 namespace {
 
@@ -398,12 +416,10 @@ __device__ __forceinline__ Cell load_cell(const Step& p, size_t b, int j,
   return x;
 }
 
-// The elementwise delta of cell (b, j) given dh_rec, the recurrent part of
-// dh: writes the four gate deltas (bf16), their fp32 products with s and
-// the carried dc; returns the largest |dgates * s| of the four.
-__device__ __forceinline__ float cell_delta(const Step& p, const Cell& x,
-                                            float dh_rec, size_t b, int j,
-                                            int H) {
+// The elementwise delta of a cell given dh_rec, the recurrent part of dh:
+// the four gate deltas d and the dc carried to the step before
+__device__ __forceinline__ void delta(const Cell& x, float dh_rec,
+                                      float (&d)[4], float& dc_prev) {
   const float dh = __fadd_rn(dh_rec, x.dy);
   const float tc = tanhf(x.c);
   const float d_o = __fmul_rn(__fmul_rn(__fmul_rn(dh, tc), x.o),
@@ -411,24 +427,42 @@ __device__ __forceinline__ float cell_delta(const Step& p, const Cell& x,
   const float dc = __fadd_rn(
       x.dc, __fmul_rn(__fmul_rn(dh, x.o),
                       __fsub_rn(1.f, __fmul_rn(tc, tc))));
-  const float di = __fmul_rn(__fmul_rn(__fmul_rn(dc, x.g), x.i),
-                             __fsub_rn(1.f, x.i));
-  const float df = __fmul_rn(__fmul_rn(__fmul_rn(dc, x.cp), x.f),
-                             __fsub_rn(1.f, x.f));
-  const float dg = __fmul_rn(__fmul_rn(dc, x.i),
-                             __fsub_rn(1.f, __fmul_rn(x.g, x.g)));
-  const float d[4] = {di, df, dg, d_o};
+  d[0] = __fmul_rn(__fmul_rn(__fmul_rn(dc, x.g), x.i), __fsub_rn(1.f, x.i));
+  d[1] = __fmul_rn(__fmul_rn(__fmul_rn(dc, x.cp), x.f), __fsub_rn(1.f, x.f));
+  d[2] = __fmul_rn(__fmul_rn(dc, x.i), __fsub_rn(1.f, __fmul_rn(x.g, x.g)));
+  d[3] = d_o;
+  dc_prev = __fmul_rn(dc, x.f);
+}
+
+// The gate deltas d of a cell given dh_rec, their fp32 products v with
+// s and the dc carried to the step before; returns the largest |v|
+__device__ __forceinline__ float scaled_delta(const Step& p, const Cell& x,
+                                              float dh_rec, int j, int H,
+                                              float (&d)[4], float (&v)[4],
+                                              float& dc_prev) {
+  delta(x, dh_rec, d, dc_prev);
   float m = 0.f;
 #pragma unroll
   for (int g = 0; g < 4; ++g) {
-    const size_t r = b * 4 * H + g * H + j;
-    const float v = __fmul_rn(d[g], p.s[g * H + j]);
-    p.dg_out[r] = __float2bfloat16(d[g]);
-    p.dgs[r] = v;
-    m = fmaxf(m, fabsf(v));
+    v[g] = __fmul_rn(d[g], p.s[g * H + j]);
+    m = fmaxf(m, fabsf(v[g]));
   }
-  p.dc[b * H + j] = __fmul_rn(dc, x.f);
   return m;
+}
+
+// Cell (b, j)'s gate deltas (bf16), their products with s (into p.dgs
+// when it is set) and its carried dc
+__device__ __forceinline__ void store_delta(const Step& p, const float (&d)[4],
+                                            const float (&v)[4],
+                                            float dc_prev, size_t b, int j,
+                                            int H) {
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    const size_t r = b * 4 * H + g * H + j;
+    p.dg_out[r] = __float2bfloat16(d[g]);
+    if (p.dgs) p.dgs[r] = v[g];
+  }
+  p.dc[b * H + j] = dc_prev;
 }
 
 // The epilogue of one cell of this thread: its delta (or dh0), then each
@@ -443,7 +477,12 @@ __device__ __forceinline__ void finish(const Step& p, const Cell& x,
     if (live) p.dh_out[(size_t)b * H + j] = dh_rec;
     return;
   }
-  float m = live ? cell_delta(p, x, dh_rec, (size_t)b, j, H) : 0.f;
+  float d[4], v[4], dc;
+  float m = 0.f;
+  if (live) {
+    m = scaled_delta(p, x, dh_rec, j, H, d, v, dc);
+    store_delta(p, d, v, dc, (size_t)b, j, H);
+  }
 #pragma unroll
   for (int off = JU / 2; off > 0; off /= 2)
     m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
@@ -655,58 +694,448 @@ cudaError_t run(const bf16* dys, const bf16* acts, const bf16* cs,
 
 }  // namespace bwd
 
+// ------------------------------------------ persistent K1-q8 and K2-q8
+
+namespace persist_q8 {
+
+using namespace hl::persist;
+
+// The grid barrier's arrivals so far, the same count in every block:
+// wait() returns once every block has arrived as often as this one, and
+// then sees every write a block made before that arrival.
+struct Phase {
+  unsigned n = 0;
+  __device__ __forceinline__ void arrive(unsigned* bar) {
+    grid_arrive(bar);
+    ++n;
+  }
+  __device__ __forceinline__ void wait(const unsigned* bar) const {
+    grid_wait(bar, n * gridDim.x);
+  }
+};
+
+// K1-q8: bf16 x_proj, H % 16 == 0; the grid is p.clusters clusters of
+// p.c == CL blocks. hq (2, B, H): step t reads half t % 2 and writes the
+// other; half 0 holds h0's quantization, written by the launch's first
+// phase.
+template <int CL, int NPW>
+__global__ void __launch_bounds__(THREADS, 1)
+fwd_k(const bf16* __restrict__ xp, const int8_t* __restrict__ wq,
+      const float* __restrict__ sdiv, const float* __restrict__ h0,
+      float* __restrict__ c, int8_t* __restrict__ hq, bf16* __restrict__ ys,
+      float* __restrict__ h_last, bf16* __restrict__ acts,
+      bf16* __restrict__ cs, unsigned* __restrict__ bar, int T, int B,
+      int H, const Plan p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int cu = p.c * p.u;
+  const Layout lay(p, 1);
+  int8_t* w_s = reinterpret_cast<int8_t*>(smem);      // [n][kc + 16]
+  void* x_s = smem + lay.slab;                        // [stages][BM][KS + 16]
+  int* p_s = reinterpret_cast<int*>(smem + lay.slab);  // [wk][n][BM]
+  uint32_t peer[CL];                        // the partials of the cluster
+  peers(peer, hl::smem_addr(p_s));
+  const uint32_t bars = hl::smem_addr(smem + lay.bars);
+  uint32_t par = 0;                         // the ring's next parities
+  const int rank = static_cast<int>(hl::cluster_rank());
+  const int q = blockIdx.x / p.c;           // this block's cluster
+  const int j0 = q * cu;                    // the cluster's first unit
+  const int k0 = rank * p.kc;               // this block's columns of hq
+  const int cols = min(p.kc, H - k0);
+  const int warp = threadIdx.x / 32, ng = warp % p.nw, wkg = warp / p.nw;
+  const int ju = j0 + rank * p.u;           // this block's first unit
+  const int nu = max(0, min(p.u, H - ju));  // and how many it has
+  const size_t n1 = (size_t)B * H, n4 = (size_t)B * 4 * H;
+  Phase ph;
+
+  // h0 quantized, this block's units: what step 0 multiplies
+  for (int i = threadIdx.x; i < B * nu; i += THREADS) {
+    const size_t o = (size_t)(i / nu) * H + ju + i % nu;
+    hq[o] = q8(h0[o]);
+  }
+  ph.arrive(bar);
+  // slab row g cu + jl: wq row g H + j0 + jl, this block's columns
+  load_slab(w_s, p.n, p.kc, cols, wq, [&](int r) -> const int8_t* {
+    const int g = r / cu, j = j0 + r % cu;
+    return g < 4 && j < H ? wq + ((size_t)g * H + j) * H + k0 : nullptr;
+  });
+
+  const int lw0 = first_loader(p.nw, p.wk);
+  init_ring(bars, p.stages, lw0);
+  hl::cluster_arrive();                     // the partials are free
+  for (int t = 0; t < T; ++t) {
+    const int8_t* h = hq + (t & 1) * n1;
+    const fwd::Step<bf16> st{xp + t * n4, wq, sdiv, h, c,
+                             hq + ((t + 1) & 1) * n1, ys + t * n1,
+                             t == T - 1 ? h_last : nullptr,
+                             acts ? acts + t * n4 : nullptr,
+                             cs ? cs + t * n1 : nullptr};
+    for (int b0 = 0; b0 < B; b0 += BM) {
+      const int rows = min(BM, B - b0);
+      // this thread's cells (b0 + i / u, ju + i % u), i = 4 tid .. + 3:
+      // x_proj's gates and c, loaded before the barrier so that their
+      // latency hides
+      const int i0 = GC * threadIdx.x;
+      const bool live = i0 < rows * p.u;
+      float zx[GC][4], cv[GC];
+#pragma unroll
+      for (int e = 0; e < GC; ++e) {
+        const int b = (i0 + e) / p.u, jl = (i0 + e) % p.u;
+        if (b < rows && jl < nu)
+          fwd::load_cell(st, (size_t)(b0 + b), ju + jl, H, zx[e], cv[e]);
+      }
+      if (b0 == 0) ph.wait(bar);
+
+      int acc[NPW][MT][4];
+#pragma unroll
+      for (int j = 0; j < NPW; ++j)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) acc[j][mt][v] = 0;
+      hl::cluster_wait();         // the cluster is done with the partials
+      product<NPW>(h, H, k0, cols, b0, rows, p.kc, w_s, x_s, bars, p.stages,
+                   par, ng, wkg, p.wk, lw0, acc);
+      if (wkg < p.wk) store_partial<NPW>(p_s, p.n, p.u, cu, ng, wkg, acc);
+      fold_slabs(p_s, p.n, p.wk);
+      hl::cluster_arrive();
+      hl::cluster_wait();         // every block's partials are written
+
+      int4 v[4][CL];              // the cells' gate sums from the CL blocks
+      if (live)
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          gather(v[g], peer, (rank * 4 + g) * BM * p.u + i0);
+#pragma unroll
+      for (int e = 0; e < GC; ++e) {
+        const int b = (i0 + e) / p.u, jl = (i0 + e) % p.u;
+        if (live && b < rows && jl < nu) {
+          int sums[4];
+#pragma unroll
+          for (int g = 0; g < 4; ++g) sums[g] = rank_sum(v[g], e);
+          fwd::cell(st, zx[e], cv[e], sums, (size_t)(b0 + b), ju + jl, H);
+        }
+      }
+      hl::cluster_arrive();       // this block is done with the partials
+    }
+    if (t + 1 < T) ph.arrive(bar);
+  }
+  hl::cluster_wait();             // no block leaves while a peer reads it
+}
+
+// K2-q8: H % 16 == 0; the grid is p.clusters clusters of p.c == CL
+// blocks; two grid barriers a step (a tile of 48 batch rows). Each block
+// computes its cells' deltas and raises each row's maximum of
+// |dgates * s| in gmax (2, B: the bits of non-negative floats order as
+// the floats; half t % 2, the other half zeroed by block 0 for the next
+// step) and arrives; once every block has, each reads its rows' m,
+// quantizes its own cells into q (B, 4H) int8 (block 0 also writes mq
+// (B) = m / 127) and arrives again; the next product reads q.
+template <int CL, int NPW>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_k(const bf16* __restrict__ dys, const bf16* __restrict__ acts,
+      const bf16* __restrict__ cs, const bf16* __restrict__ c0,
+      const int8_t* __restrict__ wq, const float* __restrict__ s,
+      const float* __restrict__ dh_init, float* __restrict__ dc,
+      bf16* __restrict__ dgates, float* __restrict__ dh0,
+      int8_t* __restrict__ q, float* __restrict__ mq,
+      unsigned* __restrict__ bar, int* __restrict__ gmax, int T, int B,
+      int H, const Plan p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float m_s[BM];                 // the tile's row scales m
+  __shared__ int rmax_s[BM];                // this block's row maxima
+  const int cu = p.c * p.u, K = 4 * H;
+  const Layout lay(p, 1);
+  int8_t* w_s = reinterpret_cast<int8_t*>(smem);      // [n][kc + 16]
+  void* x_s = smem + lay.slab;                        // [stages][BM][KS + 16]
+  int* p_s = reinterpret_cast<int*>(smem + lay.slab);  // [wk][n][BM]
+  uint32_t peer[CL];                        // the partials of the cluster
+  peers(peer, hl::smem_addr(p_s));
+  const uint32_t bars = hl::smem_addr(smem + lay.bars);
+  uint32_t par = 0;                         // the ring's next parities
+  const int rank = static_cast<int>(hl::cluster_rank());
+  const int qc = blockIdx.x / p.c;          // this block's cluster
+  const int j0 = qc * cu;                   // the cluster's first unit
+  const int k0 = rank * p.kc;               // this block's columns of 4H
+  const int cols = min(p.kc, K - k0);
+  const int warp = threadIdx.x / 32, ng = warp % p.nw, wkg = warp / p.nw;
+  const int ju = j0 + rank * p.u;           // this block's first unit
+  const int nu = max(0, min(p.u, H - ju));  // and how many it has
+  const size_t g4 = (size_t)B * K, g1 = (size_t)B * H;
+  Phase ph;
+
+  // slab row jl, column k: wq[k0 + k][j0 + jl] (wq^T's row j0 + jl; the
+  // plan's n is the cluster's c u units), read from wq's rows in 8-byte
+  // runs of units and transposed on the way in
+  {
+    const int ldw = p.kc + 16, runs = cu / 8;   // u even: 8 | c u
+    for (int i = threadIdx.x; i < p.kc * runs; i += THREADS) {
+      const int k = i % p.kc, r8 = i / p.kc, j = j0 + r8 * 8;
+      uint2 w = make_uint2(0, 0);
+      if (k < cols && j < H)
+        w = __ldg(reinterpret_cast<const uint2*>(wq + (size_t)(k0 + k) * H +
+                                                 j));
+      const int8_t* b = reinterpret_cast<const int8_t*>(&w);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) w_s[(r8 * 8 + e) * ldw + k] = b[e];
+    }
+    __syncthreads();
+  }
+
+  const int lw0 = first_loader(p.nw, p.wk);
+  init_ring(bars, p.stages, lw0);
+  hl::cluster_arrive();                     // the partials are free
+  for (int sidx = 0; sidx <= T; ++sidx) {
+    const int t = T - 1 - sidx;   // the step whose delta follows; -1: dh0
+    bwd::Step st{};
+    if (t >= 0)
+      st = bwd::Step{nullptr, nullptr, nullptr, s, dh_init, dys + t * g1,
+                     acts + t * g4, cs + t * g1,
+                     t ? cs + (t - 1) * g1 : c0, dc, dgates + t * g4,
+                     nullptr, nullptr, nullptr};
+    int* gm = gmax + (t & 1) * B;           // step t's row maxima
+    for (int b0 = 0; b0 < B; b0 += BM) {
+      const int rows = min(BM, B - b0);
+      // this thread's cells (b0 + i / u, ju + i % u), i = 4 tid .. + 3:
+      // residuals and dc, loaded before the barrier so that their latency
+      // hides
+      const int i0 = GC * threadIdx.x;
+      const bool live = i0 < rows * p.u;
+      bwd::Cell cell[GC];
+      float dhr[GC];
+#pragma unroll
+      for (int e = 0; e < GC; ++e) {
+        const int b = (i0 + e) / p.u, jl = (i0 + e) % p.u;
+        dhr[e] = 0.f;
+        if (b < rows && jl < nu) {
+          const size_t bb = b0 + b;
+          if (t >= 0) cell[e] = bwd::load_cell(st, bb, ju + jl, H);
+          if (sidx == 0) dhr[e] = dh_init[bb * H + ju + jl];
+        }
+      }
+      if (sidx > 0) {           // dh_rec = q(dgates[t+1] * s) . wq m / 127
+        ph.wait(bar);
+        int acc[NPW][MT][4];
+#pragma unroll
+        for (int j = 0; j < NPW; ++j)
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int v = 0; v < 4; ++v) acc[j][mt][v] = 0;
+        hl::cluster_wait();     // the cluster is done with the partials
+        product<NPW>(q, K, k0, cols, b0, rows, p.kc, w_s, x_s, bars,
+                     p.stages, par, ng, wkg, p.wk, lw0, acc);
+        if (wkg < p.wk) store_partial<NPW>(p_s, p.n, p.u, cu, ng, wkg, acc);
+        fold_slabs(p_s, p.n, p.wk);
+        hl::cluster_arrive();
+        hl::cluster_wait();     // every block's partials are written
+        int4 v[CL];             // the cells' sums from the CL blocks
+        if (live) {
+          gather(v, peer, rank * BM * p.u + i0);
+#pragma unroll
+          for (int e = 0; e < GC; ++e) {
+            const int b = (i0 + e) / p.u;
+            if (b < rows)
+              dhr[e] = __fmul_rn(__int2float_rn(rank_sum(v, e)),
+                                 __ldcg(mq + b0 + b));
+          }
+        }
+        hl::cluster_arrive();   // this block is done with the partials
+      }
+      if (t < 0) {              // dh0
+#pragma unroll
+        for (int e = 0; e < GC; ++e) {
+          const int b = (i0 + e) / p.u, jl = (i0 + e) % p.u;
+          if (b < rows && jl < nu)
+            dh0[(size_t)(b0 + b) * H + ju + jl] = dhr[e];
+        }
+        continue;
+      }
+      // the cells' deltas; this block's maximum of |dgates * s| in each of
+      // the tile's rows, raised in gm (its only write before the arrive,
+      // whose release then waits for nothing else)
+      if (threadIdx.x < BM) rmax_s[threadIdx.x] = 0;
+      __syncthreads();
+      float d[GC][4], v[GC][4], dcp[GC];
+#pragma unroll
+      for (int e = 0; e < GC; ++e) {
+        const int b = (i0 + e) / p.u, jl = (i0 + e) % p.u;
+        if (b < rows && jl < nu) {
+          const float m = bwd::scaled_delta(st, cell[e], dhr[e], ju + jl, H,
+                                            d[e], v[e], dcp[e]);
+          atomicMax(rmax_s + b, __float_as_int(m));
+        }
+      }
+      __syncthreads();
+      if (threadIdx.x < rows)
+        atomicMax(gm + b0 + threadIdx.x, rmax_s[threadIdx.x]);
+      ph.arrive(bar);
+      // while the others arrive: dgates[t] and dc, which no block reads
+      // in this launch
+#pragma unroll
+      for (int e = 0; e < GC; ++e) {
+        const int b = (i0 + e) / p.u, jl = (i0 + e) % p.u;
+        if (b < rows && jl < nu)
+          bwd::store_delta(st, d[e], v[e], dcp[e], (size_t)(b0 + b), ju + jl,
+                           H);
+      }
+      // every block's maxima are in: each row's m (at least 1e-20); the
+      // owners quantize their cells, and the next product reads q and mq
+      ph.wait(bar);
+      if (threadIdx.x < rows) {
+        const float m = fmaxf(__int_as_float(__ldcg(gm + b0 + threadIdx.x)),
+                              1e-20f);
+        m_s[threadIdx.x] = m;
+        if (blockIdx.x == 0) {
+          mq[b0 + threadIdx.x] = __fdiv_rn(m, 127.f);
+          gmax[((t + 1) & 1) * B + b0 + threadIdx.x] = 0;   // step t-1's
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int e = 0; e < GC; ++e) {
+        const int b = (i0 + e) / p.u, jl = (i0 + e) % p.u;
+        if (b < rows && jl < nu) {
+          int8_t* o = q + (size_t)(b0 + b) * K + ju + jl;
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+            o[g * H] = q8(__fdiv_rn(v[e][g], m_s[b]));
+        }
+      }
+      ph.arrive(bar);
+    }
+  }
+  hl::cluster_wait();             // no block leaves while a peer reads it
+}
+
+template <int CL>
+cudaError_t fwd_run(const bf16* xp, const int8_t* wq, const float* sdiv,
+                    const float* h0, float* c, int8_t* hq, bf16* ys,
+                    float* h_last, bf16* acts, bf16* cs, unsigned* bar,
+                    int T_, int B, int H, const Plan& p, cudaStream_t st) {
+  auto go = [&](auto kernel) {
+    return hl::persist::launch(kernel, p.clusters * p.c, p.c, p.smem, st, xp,
+                               wq, sdiv, h0, c, hq, ys, h_last, acts, cs, bar,
+                               T_, B, H, p);
+  };
+  switch (p.npw) {
+    case 1: return go(fwd_k<CL, 1>);
+    case 2: return go(fwd_k<CL, 2>);
+    case 3: return go(fwd_k<CL, 3>);
+    case 4: return go(fwd_k<CL, 4>);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <int CL>
+cudaError_t bwd_run(const bf16* dys, const bf16* acts, const bf16* cs,
+                    const bf16* c0, const int8_t* wq, const float* s,
+                    const float* dh_init, float* dc, bf16* dgates,
+                    float* dh0, int8_t* q, float* mq, unsigned* bar, int T_,
+                    int B, int H, const Plan& p, cudaStream_t st) {
+  auto go = [&](auto kernel) {
+    return hl::persist::launch(kernel, p.clusters * p.c, p.c, p.smem, st,
+                               dys, acts, cs, c0, wq, s, dh_init, dc, dgates,
+                               dh0, q, mq, bar,
+                               reinterpret_cast<int*>(bar + 1), T_, B, H, p);
+  };
+  switch (p.npw) {
+    case 1: return go(bwd_k<CL, 1>);
+    case 2: return go(bwd_k<CL, 2>);
+    case 3: return go(bwd_k<CL, 3>);
+    case 4: return go(bwd_k<CL, 4>);
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace persist_q8
+
 }  // namespace
 
 // K1-q8. x_proj (T, B, 4H) and ys (T, B, H) in fp32 (bf16 == 0) or bf16;
 // wq (4H, H) int8; sdiv (4H) fp32 = s / 127; h0 (B, H) fp32; c (B, H)
 // fp32 holds c0 and is left holding the last c; hq (2, B, H) int8 scratch;
 // h_last (B, H) fp32 receives the last h; acts (T, B, 4H) and cs (T, B, H)
-// bf16 receive the residuals, or are both null. T >= 1. Returns the
-// launches' cudaError_t.
+// bf16 receive the residuals, or are both null. plan (host,
+// hl::persist::PLAN_INTS ints) selects the persistent kernel (bf16,
+// H % 16 == 0), with bar a zeroed 32-bit word on the card; null the
+// per-step kernels (step_tc for H % 32 == 0, else step_int). T >= 1.
+// Returns the launches' cudaError_t.
 extern "C" int hl_lstm_fwd_q8(const void* xp, const void* wq,
                               const void* sdiv, const void* h0, void* c,
                               void* hq, void* ys, void* h_last, void* acts,
                               void* cs, int T, int B, int H, int bf16_,
-                              void* stream) {
+                              const int* plan, void* bar, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* w = static_cast<const int8_t*>(wq);
   const float* sd = static_cast<const float*>(sdiv);
   const float* h = static_cast<const float*>(h0);
   float* cc = static_cast<float*>(c);
   int8_t* q = static_cast<int8_t*>(hq);
-  float* hl = static_cast<float*>(h_last);
+  float* hlast = static_cast<float*>(h_last);
   bf16* a = static_cast<bf16*>(acts);
   bf16* cr = static_cast<bf16*>(cs);
   cudaError_t err;
-  if (bf16_)
+  if (plan) {
+    const hl::persist::Plan p = hl::persist::read_plan(plan);
+    if (!bf16_ || H % 16 != 0 || !bar) return cudaErrorInvalidValue;
+    const bf16* x = static_cast<const bf16*>(xp);
+    bf16* y = static_cast<bf16*>(ys);
+    unsigned* b = static_cast<unsigned*>(bar);
+    err = p.c == 4 ? persist_q8::fwd_run<4>(x, w, sd, h, cc, q, y, hlast, a,
+                                            cr, b, T, B, H, p, st)
+                   : cudaErrorInvalidValue;
+  } else if (bf16_)
     err = fwd::run(static_cast<const bf16*>(xp), w, sd, h, cc, q,
-                   static_cast<bf16*>(ys), hl, a, cr, T, B, H, st);
+                   static_cast<bf16*>(ys), hlast, a, cr, T, B, H, st);
   else
     err = fwd::run(static_cast<const float*>(xp), w, sd, h, cc, q,
-                   static_cast<float*>(ys), hl, a, cr, T, B, H, st);
+                   static_cast<float*>(ys), hlast, a, cr, T, B, H, st);
   return static_cast<int>(err);
 }
 
 // K2-q8. dys (T, B, H), acts (T, B, 4H), cs (T, B, H) and c0 (B, H) in
-// bf16; wqt (H, 4H) int8 = wq^T; s (4H) fp32; dh_init (B, H) fp32, the
-// carried dh at T-1; dc (B, H) fp32 holds the carried dc at T-1 and is
-// left holding dc0; dgates (T, B, 4H) bf16 and dh0 (B, H) fp32 receive the
-// results; dgs (B, 4H) fp32, pmax (B, ceil(H / 16)) fp32, q (B, 4H) int8
-// and mq (B) fp32 are scratch. T >= 1. Returns the launches' cudaError_t.
+// bf16; s (4H) fp32; dh_init (B, H) fp32, the carried dh at T-1; dc (B, H)
+// fp32 holds the carried dc at T-1 and is left holding dc0; dgates
+// (T, B, 4H) bf16 and dh0 (B, H) fp32 receive the results; q (B, 4H) int8
+// and mq (B) fp32 are scratch. T >= 1. plan (host, hl::persist::PLAN_INTS
+// ints) selects the persistent kernel (H % 16 == 0, two grid barriers a
+// step): w is wq (4H, H) int8, bar 1 + 2B zeroed 32-bit words on the card
+// (the barrier's counter, then the row maxima of two steps). Null selects
+// the per-step kernels (step_tc for H % 32 == 0, else step_int): w is
+// wq^T (H, 4H), and dgs (B, 4H) and pmax (B, ceil(H / 16)) fp32 are
+// scratch too. Returns the launches' cudaError_t.
 extern "C" int hl_lstm_bwd_q8(const void* dys, const void* acts,
-                              const void* cs, const void* c0,
-                              const void* wqt, const void* s,
-                              const void* dh_init, void* dc, void* dgates,
-                              void* dh0, void* dgs, void* pmax, void* q,
-                              void* mq, int T, int B, int H, void* stream) {
-  const cudaError_t err = bwd::run(
-      static_cast<const bf16*>(dys), static_cast<const bf16*>(acts),
-      static_cast<const bf16*>(cs), static_cast<const bf16*>(c0),
-      static_cast<const int8_t*>(wqt), static_cast<const float*>(s),
-      static_cast<const float*>(dh_init), static_cast<float*>(dc),
-      static_cast<bf16*>(dgates), static_cast<float*>(dh0),
-      static_cast<float*>(dgs), static_cast<float*>(pmax),
-      static_cast<int8_t*>(q), static_cast<float*>(mq), T, B, H,
-      static_cast<cudaStream_t>(stream));
+                              const void* cs, const void* c0, const void* w,
+                              const void* s, const void* dh_init, void* dc,
+                              void* dgates, void* dh0, void* dgs, void* pmax,
+                              void* q, void* mq, int T, int B, int H,
+                              const int* plan, void* bar, void* stream) {
+  const bf16* dy = static_cast<const bf16*>(dys);
+  const bf16* a = static_cast<const bf16*>(acts);
+  const bf16* cr = static_cast<const bf16*>(cs);
+  const bf16* c0_ = static_cast<const bf16*>(c0);
+  const int8_t* w8 = static_cast<const int8_t*>(w);
+  const float* s_ = static_cast<const float*>(s);
+  const float* dhi = static_cast<const float*>(dh_init);
+  float* dcc = static_cast<float*>(dc);
+  bf16* dg = static_cast<bf16*>(dgates);
+  float* dh0_ = static_cast<float*>(dh0);
+  int8_t* q_ = static_cast<int8_t*>(q);
+  float* mq_ = static_cast<float*>(mq);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (plan) {
+    const hl::persist::Plan p = hl::persist::read_plan(plan);
+    if (H % 16 != 0 || !bar) return cudaErrorInvalidValue;
+    unsigned* b = static_cast<unsigned*>(bar);
+    err = p.c == 8 ? persist_q8::bwd_run<8>(dy, a, cr, c0_, w8, s_, dhi, dcc,
+                                            dg, dh0_, q_, mq_, b, T, B, H, p,
+                                            st)
+                   : cudaErrorInvalidValue;
+  } else {
+    err = bwd::run(dy, a, cr, c0_, w8, s_, dhi, dcc, dg, dh0_,
+                   static_cast<float*>(dgs), static_cast<float*>(pmax), q_,
+                   mq_, T, B, H, st);
+  }
   return static_cast<int>(err);
 }

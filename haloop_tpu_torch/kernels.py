@@ -36,11 +36,12 @@ _SIGNATURES = {
     "hl_lstm_bwd": [_P] * 9 + [_I] * 4 + [_P] * 3,
     # cluster size, out (host int[5])
     "hl_lstm_card": [_I, _P],
-    # xp, wq, sdiv, h0, c, hq, ys, h_last, acts, cs, T, B, H, bf16, stream
-    "hl_lstm_fwd_q8": [_P] * 10 + [_I] * 4 + [_P],
-    # dys, acts, cs, c0, wqt, s, dh_init, dc, dgates, dh0, dgs, pmax, q,
-    # mq, T, B, H, stream
-    "hl_lstm_bwd_q8": [_P] * 14 + [_I] * 3 + [_P],
+    # xp, wq, sdiv, h0, c, hq, ys, h_last, acts, cs, T, B, H, bf16, plan
+    # (host int[10] or null), barrier word, stream
+    "hl_lstm_fwd_q8": [_P] * 10 + [_I] * 4 + [_P] * 3,
+    # dys, acts, cs, c0, w (wq, or wq^T without a plan), s, dh_init, dc,
+    # dgates, dh0, dgs, pmax, q, mq, T, B, H, plan, barrier words, stream
+    "hl_lstm_bwd_q8": [_P] * 14 + [_I] * 3 + [_P] * 3,
     # log_probs, targets, input_lengths, target_lengths, loss, hist,
     # T, N, C, U, stream
     "hl_ctc_fwd": [_P] * 6 + [_I] * 4 + [_P],

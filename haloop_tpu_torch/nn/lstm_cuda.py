@@ -24,7 +24,11 @@ K1 and K2 take one of three routes, decided before the launch by
 SMs' shared memory (bf16, H % 8 == 0, W's slices fit; every hac width),
 laid out by ``persist_plan``; ``tc_step``, a tensor-core launch a step
 (bf16 whose slices do not fit); ``fma_step``, a CUDA-core launch a step
-(fp32, or H % 8 != 0). ``route_launches`` counts the calls of each.
+(fp32, or H % 8 != 0). K1-q8 and K2-q8 (kinds ``fwd_q8``, ``bwd_q8``) take
+``persist`` on the same skeleton with int8 wq resident (H % 16 == 0, the
+plan fits: every hac width; K1-q8 with bf16 x_proj and H of at least
+``Q8_FWD_MIN_H``), else the per-step ``tc_step`` (H % 32 == 0) or
+``int_step``. ``route_launches`` counts the calls of each.
 """
 
 import ctypes
@@ -41,18 +45,37 @@ bwd_launches = 0          # K2 calls (one per layer backward)
 q8_launches = 0           # K1-q8 calls without residuals
 q8_residual_launches = 0  # K1-q8 calls with residuals
 q8_bwd_launches = 0       # K2-q8 calls
-# K1 (both modes) and K2 calls by route: "fwd_persist", "bwd_tc_step", ...
-route_launches = {f"{k}_{r}": 0 for k in ("fwd", "bwd")
-                  for r in ("persist", "tc_step", "fma_step")}
+# the calls of each kind by route: "fwd_persist", "bwd_tc_step",
+# "fwd_q8_int_step", ... (K1 and K1-q8 both modes)
+ROUTES = {"fwd": ("persist", "tc_step", "fma_step"),
+          "bwd": ("persist", "tc_step", "fma_step"),
+          "fwd_q8": ("persist", "tc_step", "int_step"),
+          "bwd_q8": ("persist", "tc_step", "int_step")}
+route_launches = {f"{k}_{r}": 0 for k, rs in ROUTES.items() for r in rs}
 
 # the persistent kernels' fixed shape (csrc/persist.cuh): blocks a cluster
-# (K1 splits its H-deep contraction in two, K2 its 4H-deep one in four),
-# threads (8 warps), batch rows a tile, contraction a ring slot, and the
-# units a block may own (even: a cluster's units fill whole 8-row tiles)
-CLUSTERS = {"fwd": 4, "bwd": 8}
+# of each kind (K1 splits its H-deep contraction in four, K2 its 4H-deep
+# one in eight; the int8 kinds' sizes were picked by timing them on the
+# card, PERF.md), threads (8 warps), batch rows a tile, contraction a ring
+# slot (elements), and the units a block may own (even: a cluster's units
+# fill whole 8-row tiles)
+CLUSTERS = {"fwd": 4, "bwd": 8, "fwd_q8": 4, "bwd_q8": 8}
+# The int8 plans take 16 units a block where that keeps at least this
+# share of the blocks of the fewest units: each block's bf16 outputs of a
+# batch row then fill whole 32-byte sectors that no other block writes
+# (K1-q8's residuals, K2-q8's dgates; timed faster at H = 1536 with 96
+# blocks against 112, slower at H = 1024 with 64 against 104; PERF.md)
+Q8_WHOLE_SECTORS = 0.75
+# K1-q8 below this width takes the per-step kernel, which is faster there
+# at every sequence length timed (T = 16 to 128 at H = 512; PERF.md): a
+# persistent step's cluster and grid barriers cost more than a launch
+Q8_FWD_MIN_H = 1024
 THREADS, BM, KS = 256, 48, 64
 UNITS = (2, 4, 6, 8, 10, 12, 14, 16)
 WARPS = THREADS // 32
+# static shared memory of a kind's kernel beside the plan's dynamic
+# shared memory: K2-q8's row scales and row maxima of a tile
+STATIC_SMEM = {"bwd_q8": 2 * BM * 4}
 
 
 @dataclass(frozen=True)
@@ -84,52 +107,72 @@ def _warp_split(nt):
     return min(splits, key=lambda s: (s[0] / s[2], s[2]))
 
 
+def _plan_at(kind, H, c, u, ncl, smem):
+    """The plan of ``ncl`` clusters of c blocks of u units, or None when
+    its warps' split or its shared memory does not fit."""
+    es = 1 if kind.endswith("_q8") else 2          # bytes an operand
+    kdim = H if kind.startswith("fwd") else 4 * H
+    kc = -(-kdim // (c * KS)) * KS
+    n = 4 * c * u if kind.startswith("fwd") else c * u
+    if n // 8 > 4 * WARPS:
+        return None
+    npw, nw, wk = _warp_split(n // 8)
+    # the slab, then one region for the ring (as deep as the rest of the
+    # shared memory allows, all kc / KS slices at most) and, after each
+    # product, the partials; then an 8-byte mbarrier a slot
+    slab, slot = n * (kc * es + 16), BM * (KS * es + 16)
+    stages = min(kc // KS, (smem - slab - 8 * (kc // KS)) // slot)
+    part = wk * BM * n * 4
+    region = -(-max(stages * slot, part) // 16) * 16
+    size = slab + region + 8 * stages
+    if stages < 1 or size > smem:
+        return None
+    return Plan(c, u, ncl, kc, n, npw, nw, wk, stages, size)
+
+
 def persist_plan(kind, H, sms, smem, clusters=None):
-    """The persistent launch of K1 (``kind`` "fwd") or K2 ("bwd") at width
-    H on a card of ``sms`` SMs whose blocks may use ``smem`` bytes of
-    shared memory and which holds ``clusters`` clusters of
-    CLUSTERS[kind] blocks at once (default as many as the SMs make), or
-    None when W's slices do not fit. The most blocks that fit: the fewest
-    units a block."""
+    """The persistent launch of K1 (``kind`` "fwd"), K2 ("bwd"), K1-q8
+    ("fwd_q8") or K2-q8 ("bwd_q8") at width H on a card of ``sms`` SMs
+    whose blocks may use ``smem`` bytes of shared memory and which holds
+    ``clusters`` clusters of CLUSTERS[kind] blocks at once (default as
+    many as the SMs make), or None when W's slices do not fit. The most
+    blocks that fit: the fewest units a block. The int8 kinds take 16
+    units a block instead where that keeps Q8_WHOLE_SECTORS of those
+    blocks or more."""
     c = CLUSTERS[kind]
     clusters = sms // c if clusters is None else clusters
-    kdim = H if kind == "fwd" else 4 * H
-    kc = -(-kdim // (c * KS)) * KS
-    for u in UNITS:
-        cu = c * u
-        ncl = -(-H // cu)
-        if ncl > clusters:
-            continue
-        n = 4 * cu if kind == "fwd" else cu
-        split = _warp_split(n // 8) if n // 8 <= 4 * WARPS else None
-        if split is None:
-            return None
-        npw, nw, wk = split
-        # the slab, then one region for the ring (as deep as the rest of
-        # the shared memory allows, all kc / KS slices at most) and, after
-        # each product, the partials; then an 8-byte mbarrier a slot
-        slab, slot = n * (kc + 8) * 2, BM * (KS + 8) * 2
-        stages = min(kc // KS, (smem - slab - 8 * (kc // KS)) // slot)
-        part = wk * BM * n * 4
-        region = -(-max(stages * slot, part) // 16) * 16
-        size = slab + region + 8 * stages
-        if stages < 1 or size > smem:
-            return None
-        return Plan(c, u, ncl, kc, n, npw, nw, wk, stages, size)
-    return None
+    smem -= STATIC_SMEM.get(kind, 0)
+    fits = [u for u in UNITS if -(-H // (c * u)) <= clusters]
+    if not fits:
+        return None
+    plan = _plan_at(kind, H, c, fits[0], -(-H // (c * fits[0])), smem)
+    if plan and kind.endswith("_q8") and 16 in fits[1:]:
+        whole = _plan_at(kind, H, c, 16, -(-H // (c * 16)), smem)
+        if whole and whole.blocks >= Q8_WHOLE_SECTORS * plan.blocks:
+            plan = whole
+    return plan
 
 
 def route(kind, dtype, H, B, sms, smem, clusters=None):
-    """("persist", Plan) | ("tc_step", None) | ("fma_step", None) for K1
-    (``kind`` "fwd", both modes) or K2 ("bwd") at (dtype, H), batch B, on
-    a card of ``sms`` SMs and ``smem`` bytes of shared memory a block
-    (``clusters``: see persist_plan). Every B takes the route of its H: the
-    persistent kernels loop over 48-row batch tiles."""
+    """(name, Plan or None) for K1 (``kind`` "fwd", both modes), K2
+    ("bwd"), K1-q8 ("fwd_q8", both modes; ``dtype`` x_proj's) or K2-q8
+    ("bwd_q8"; bf16) at (dtype, H), batch B, on a card of ``sms`` SMs and
+    ``smem`` bytes of shared memory a block (``clusters``: see
+    persist_plan); K1-q8 below Q8_FWD_MIN_H takes the per-step kernel.
+    Every B takes the route of its H: the persistent kernels loop over
+    48-row batch tiles."""
     del B
-    if dtype != torch.bfloat16 or H % 8:
-        return "fma_step", None
+    if kind.endswith("_q8"):
+        step = "tc_step" if H % 32 == 0 else "int_step"
+        if dtype != torch.bfloat16 or H % 16 or \
+                kind == "fwd_q8" and H < Q8_FWD_MIN_H:
+            return step, None
+    else:
+        step = "tc_step"
+        if dtype != torch.bfloat16 or H % 8:
+            return "fma_step", None
     plan = persist_plan(kind, H, sms, smem, clusters)
-    return ("persist", plan) if plan else ("tc_step", None)
+    return ("persist", plan) if plan else (step, None)
 
 
 _cards = {}
@@ -138,39 +181,46 @@ _cards = {}
 def card(device):
     """(SMs, shared memory a block may opt into, {kind: clusters of
     CLUSTERS[kind] blocks, one an SM, resident at once}) of a CUDA
-    device, queried once (``hl_lstm_card``); raises if the card takes no
-    cooperative cluster launch."""
+    device, queried once a cluster size (``hl_lstm_card``); raises if the
+    card takes no cooperative cluster launch."""
     key = torch.device(device).index or 0
     if key not in _cards:
-        lib = kernels.library()
-        ncl = {}
+        _cards[key] = {}
+    sizes = _cards[key]
+    lib = None
+    for c in sorted(set(CLUSTERS.values()) - set(sizes)):
+        lib = lib or kernels.library()
+        out = (ctypes.c_int * 5)()
         with torch.cuda.device(key):
-            for kind, c in CLUSTERS.items():
-                out = (ctypes.c_int * 5)()
-                kernels.check(lib.hl_lstm_card(c, out), "hl_lstm_card")
-                sms, smem, ncl[kind], coop, cluster = out
-                if not (coop and cluster and ncl[kind] > 0):
-                    raise RuntimeError(
-                        f"lstm_scan: device {key} offers no cooperative "
-                        f"launch in clusters of {c} (cooperative {coop}, "
-                        f"clusters {cluster}, {ncl[kind]} resident at once)")
-        _cards[key] = (sms, smem, ncl)
-    return _cards[key]
+            kernels.check(lib.hl_lstm_card(c, out), "hl_lstm_card")
+        sms, smem, ncl, coop, cluster = out
+        if not (coop and cluster and ncl > 0):
+            raise RuntimeError(
+                f"lstm_scan: device {key} offers no cooperative launch in "
+                f"clusters of {c} (cooperative {coop}, clusters {cluster}, "
+                f"{ncl} resident at once)")
+        sizes[c] = (sms, smem, ncl)
+    sms, smem, _ = next(iter(sizes.values()))
+    return sms, smem, {k: sizes[c][2] for k, c in CLUSTERS.items()}
 
 
-def _launch_route(kind, dtype, H, B, device):
-    """The route and, for ``persist``, the plan as a C int array and a
-    zeroed barrier word; counts the call."""
-    if dtype == torch.bfloat16 and H % 8 == 0:
+def _launch_route(kind, dtype, H, B, device, per_step=False):
+    """The route and, for ``persist``, the plan as a C int array, the
+    zeroed barrier word (K2-q8: followed by 2 B zeroed words, its row
+    maxima) and the Plan; counts the call. ``per_step``: the per-step
+    route of the shape whatever the card."""
+    sms = smem = 0
+    ncl = {kind: None}
+    if not per_step and dtype == torch.bfloat16 and \
+            H % (16 if kind.endswith("_q8") else 8) == 0:
         sms, smem, ncl = card(device)
-        name, plan = route(kind, dtype, H, B, sms, smem, ncl[kind])
-    else:
-        name, plan = route(kind, dtype, H, B, 0, 0)
+    name, plan = route(kind, dtype, H, B, sms, smem, ncl[kind])
     route_launches[f"{kind}_{name}"] += 1
     if plan is None:
-        return None, None
+        return None, None, None
+    words = 1 + 2 * B if kind == "bwd_q8" else 1
     return ((ctypes.c_int * len(astuple(plan)))(*astuple(plan)),
-            torch.zeros(1, dtype=torch.int32, device=device))
+            torch.zeros(words, dtype=torch.int32, device=device), plan)
 
 
 def lstm_scan(w_hh, x_proj, h0, c0, q8=False):
@@ -287,7 +337,7 @@ def lstm_fwd_cuda(w_hh, x_proj, h0, c0, residuals=False):
         return (ys, h, c, acts, cs) if residuals else (ys, h, c)
     # h enters each product in W's dtype: h0 so, and later ys[t-1]
     h_in = h0.to(dt).contiguous()
-    plan, bar = _launch_route("fwd", dt, H, B, dev)
+    plan, bar, _ = _launch_route("fwd", dt, H, B, dev)
     err = kernels.library().hl_lstm_fwd(
         x_proj.data_ptr(), w_hh.data_ptr(), h_in.data_ptr(), c.data_ptr(),
         ys.data_ptr(), h_last.data_ptr(),
@@ -338,7 +388,7 @@ def lstm_bwd_cuda(dys, acts, cs, c0, w, dh_last, dc_last):
     dh0 = torch.empty((B, H), dtype=torch.float32, device=dev)
     # W^T (H, 4H): each block takes contiguous rows of its hidden units
     wt = w.t().contiguous()
-    plan, bar = _launch_route("bwd", dt, H, B, dev)
+    plan, bar, _ = _launch_route("bwd", dt, H, B, dev)
     err = kernels.library().hl_lstm_bwd(
         dys.data_ptr(), acts.data_ptr(), cs.data_ptr(), c0.data_ptr(),
         wt.data_ptr(), dh_in.data_ptr(), dc.data_ptr(), dgates.data_ptr(),
@@ -360,9 +410,12 @@ def _check_q8_weight(name, wq, s, H):
                         f"{wq.dtype} and {s.dtype}")
 
 
-def lstm_fwd_q8_cuda(wq, s, x_proj, h0, c0, residuals=False):
+def lstm_fwd_q8_cuda(wq, s, x_proj, h0, c0, residuals=False,
+                     per_step=False):
     """K1-q8: the arguments and results of ``nn.lstm.lstm_scan_q8``;
-    x_proj bf16 or fp32, the residuals bf16."""
+    x_proj bf16 or fp32, the residuals bf16. ``per_step`` launches the
+    per-step kernels whatever the route (chip_smoke.py holds the two
+    routes to the same bits)."""
     global q8_launches, q8_residual_launches
     T, B, H4 = x_proj.shape
     H = H4 // 4
@@ -391,12 +444,15 @@ def lstm_fwd_q8_cuda(wq, s, x_proj, h0, c0, residuals=False):
     # step t reads its quantized h from one half and writes step t+1's to
     # the other
     hq = torch.empty((2, B, H), dtype=torch.int8, device=dev)
+    plan, bar, _ = _launch_route("fwd_q8", dt, H, B, dev, per_step)
     err = kernels.library().hl_lstm_fwd_q8(
         x_proj.data_ptr(), wq.data_ptr(), sdiv.data_ptr(), h_in.data_ptr(),
         c.data_ptr(), hq.data_ptr(), ys.data_ptr(), h_last.data_ptr(),
         acts.data_ptr() if residuals else None,
         cs.data_ptr() if residuals else None, T, B, H,
-        int(dt == torch.bfloat16), kernels.stream_of(x_proj))
+        int(dt == torch.bfloat16), plan,
+        bar.data_ptr() if bar is not None else None,
+        kernels.stream_of(x_proj))
     kernels.check(err, "hl_lstm_fwd_q8")
     if residuals:
         q8_residual_launches += 1
@@ -406,15 +462,17 @@ def lstm_fwd_q8_cuda(wq, s, x_proj, h0, c0, residuals=False):
 
 
 def q8_bwd_blocks(H):
-    """Blocks of K2-q8's step along H: each writes one partial row maximum
-    a batch row (csrc/lstm_q8.cu, bwd::JU units a block)."""
+    """Blocks of K2-q8's per-step kernel along H: each writes one partial
+    row maximum a batch row (csrc/lstm_q8.cu, bwd::JU units a block)."""
     return (H + 15) // 16
 
 
-def lstm_bwd_q8_cuda(dys, acts, cs, c0, wq, s, dh_last, dc_last):
+def lstm_bwd_q8_cuda(dys, acts, cs, c0, wq, s, dh_last, dc_last,
+                     per_step=False):
     """K2-q8: the arguments of ``nn.lstm.lstm_scan_bwd_q8`` with c0 (B, H)
     in place of the stacked c_prev; dys, acts, cs and c0 in bf16.
-    Returns (dgates (T, B, 4H) bf16, dh0, dc0 in fp32)."""
+    Returns (dgates (T, B, 4H) bf16, dh0, dc0 in fp32). ``per_step``: as
+    for ``lstm_fwd_q8_cuda``."""
     global q8_bwd_launches
     T, B, H4 = acts.shape
     H = H4 // 4
@@ -442,20 +500,30 @@ def lstm_bwd_q8_cuda(dys, acts, cs, c0, wq, s, dh_last, dc_last):
     if T == 0:
         return dgates, dh_in, dc
     dh0 = torch.empty((B, H), dtype=torch.float32, device=dev)
-    # wq^T (H, 4H): each block streams contiguous rows of its hidden units
-    wt = wq.t().contiguous()
-    nblk = q8_bwd_blocks(H)
-    # scratch: a step's fp32 dgates * s, its blocks' partial row maxima,
-    # and their quantization (q, m / 127) for the next step's product
-    dgs = torch.empty((B, H4), dtype=torch.float32, device=dev)
-    pmax = torch.empty((B, nblk), dtype=torch.float32, device=dev)
+    plan, bar, p = _launch_route("bwd_q8", torch.bfloat16, H, B, dev,
+                                 per_step)
+    # scratch: a step's quantized dgates * s and m / 127 for the next
+    # step's product; the per-step kernels also carry the fp32 dgates * s
+    # and the blocks' partial row maxima
     q = torch.empty((B, H4), dtype=torch.int8, device=dev)
     mq = torch.empty((B,), dtype=torch.float32, device=dev)
+    dgs = pmax = None
+    w = wq
+    if p is None:
+        # wq^T (H, 4H): each block streams contiguous rows of its units
+        w = wq.t().contiguous()
+        dgs = torch.empty((B, H4), dtype=torch.float32, device=dev)
+        pmax = torch.empty((B, q8_bwd_blocks(H)), dtype=torch.float32,
+                           device=dev)
     err = kernels.library().hl_lstm_bwd_q8(
         dys.data_ptr(), acts.data_ptr(), cs.data_ptr(), c0.data_ptr(),
-        wt.data_ptr(), s.data_ptr(), dh_in.data_ptr(), dc.data_ptr(),
-        dgates.data_ptr(), dh0.data_ptr(), dgs.data_ptr(), pmax.data_ptr(),
-        q.data_ptr(), mq.data_ptr(), T, B, H, kernels.stream_of(acts))
+        w.data_ptr(), s.data_ptr(), dh_in.data_ptr(), dc.data_ptr(),
+        dgates.data_ptr(), dh0.data_ptr(),
+        dgs.data_ptr() if dgs is not None else None,
+        pmax.data_ptr() if pmax is not None else None,
+        q.data_ptr(), mq.data_ptr(), T, B, H, plan,
+        bar.data_ptr() if bar is not None else None,
+        kernels.stream_of(acts))
     kernels.check(err, "hl_lstm_bwd_q8")
     q8_bwd_launches += 1
     return dgates, dh0, dc

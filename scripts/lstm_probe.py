@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""The bf16 LSTM recurrence kernels of the PyTorch port alone on one GPU:
-K1 (``haloop_tpu_torch/csrc/lstm_fwd.cu``, with and without residuals) and
-K2 (``csrc/lstm_bwd.cu``): their build, what the card offers them, the
-route and plan each shape takes, checks against the plain versions, and
-their times.
+"""The LSTM recurrence kernels of the PyTorch port alone on one GPU: K1
+(``haloop_tpu_torch/csrc/lstm_fwd.cu``, with and without residuals) and
+K2 (``csrc/lstm_bwd.cu``) in bf16, or with ``--q8`` their int8 modes K1-q8
+(both modes) and K2-q8 (``csrc/lstm_q8.cu``): their build, what the card
+offers them, the route and plan each shape takes, checks against the
+plain versions, and their times.
 
     python3 scripts/lstm_probe.py                 # checks, then times
     python3 scripts/lstm_probe.py --against DIR   # times and rates only:
@@ -18,6 +19,14 @@ their times.
         # with the product's loads left out (it multiplies whatever the
         # ring holds) and with its mma.sync left out (the results are
         # wrong there, the times are the point)
+
+``--q8`` with any of these: K1-q8 and K2-q8 instead. Its checks also
+hold the persistent route to the same bits as the per-step kernels
+(``per_step=True``) and as its variants (other units a block), and its
+times include those
+variants' (the tree's own; a parent without them times its routes only).
+Its rates are the ``--rnn-q8`` paths', with a CTC train step's device
+events.
 
 ``--kernels-only`` leaves the rates out. DIR is another checkout of the
 repository (``git archive`` of a commit unpacked into a directory that
@@ -52,38 +61,86 @@ CHECK_SHAPES = ((1, 5, 1000), (1, 48, 1536), (3, 100, 1000), (9, 37, 200),
                 (15, 4, 128), (6, 48, 2048), (20, 48, 1536), (25, 16, 512),
                 (301, 16, 1024), (385, 48, 1536))
 TIMED = ((385, 48, 1536), (301, 16, 1024), (25, 16, 512))
+# --q8: the shapes above, H off the persistent route (2048: the plan does
+# not fit; 40, 200: H % 16 != 0; 96: H % 32 != 0), batch tiles past one
+Q8_CHECK_SHAPES = ((1, 5, 1536), (3, 100, 1024), (9, 37, 256),
+                   (15, 4, 128), (6, 48, 2048), (20, 48, 1536),
+                   (25, 16, 512), (301, 16, 1024), (385, 48, 1536),
+                   (7, 5, 40), (20, 70, 96), (9, 37, 200))
+# --q8: K1-q8 over short sequences, persistent and per-step (where the
+# route's Q8_FWD_MIN_H comes from)
+Q8_SHORT = tuple((T, B, H) for H, B in ((512, 16), (1024, 16), (1536, 48))
+                 for T in (16, 32, 64, 128))
+# --q8 variants, timed beside the routes (K1-q8 persistent at every
+# width): (label, the units a block may own, or None for UNITS); a plan
+# that does not fit leaves the call per-step
+Q8_VARIANTS = (("K1-q8 persistent", None),
+               ("K1-q8 8 units a block", (8,)),
+               ("K1-q8 at most 14 units a block", tuple(range(2, 16, 2))),
+               ("K2-q8 at most 14 units a block", tuple(range(2, 16, 2))))
 
 
-# --phases: (file, anchor line, stamp index, loop variable) the stamps go
-# before (index < 0: after) the anchor; K1 stamps steps t, K2 products s
-STAMPS = (
-    ("lstm_fwd.cu", "      if (t > 0 && b0 == 0) grid_wait(bar, (unsigned)t * "
-     "gridDim.x);", 0, "t"),
-    ("lstm_fwd.cu", "      if (t > 0 && b0 == 0) grid_wait(bar, (unsigned)t * "
-     "gridDim.x);", -1, "t"),
-    ("lstm_fwd.cu", "      if (wkg < p.wk) store_partial<NPW>(p_s, p.n, p.u, "
-     "cu, ng, wkg, acc);", 2, "t"),
-    ("lstm_fwd.cu", "      cluster_wait();             // every block's "
-     "partials are written", -3, "t"),
-    ("lstm_fwd.cu", "      cluster_arrive();           // this block is done "
-     "with the partials", 4, "t"),
-    ("lstm_fwd.cu", "    if (t + 1 < T) grid_arrive(bar);", -5, "t"),
-    ("lstm_bwd.cu", "        if (b0 == 0) grid_wait(bar, (unsigned)s * "
-     "gridDim.x);", 0, "s"),
-    ("lstm_bwd.cu", "        if (b0 == 0) grid_wait(bar, (unsigned)s * "
-     "gridDim.x);", -1, "s"),
-    ("lstm_bwd.cu", "        if (wkg < p.wk) store_partial<NPW>(p_s, p.n, "
-     "p.u, cu, ng, wkg, acc);", 2, "s"),
-    ("lstm_bwd.cu", "        cluster_wait();         // every block's "
-     "partials are written", -3, "s"),
-    ("lstm_bwd.cu", "        cluster_arrive();       // this block is done "
-     "with the partials", 4, "s"),
-    ("lstm_bwd.cu", "    if (t >= 0) grid_arrive(bar);", -5, "s"),
-)
-PHASES = ("wait", "product", "partials to the cluster barrier",
-          "gather and cell", "grid arrive")
+# --phases: for each source, (anchor, stamp index, after, loop variable):
+# a stamp goes before the anchor's first occurrence (after it, with
+# after); K1 and K1-q8 stamp steps t, K2 and K2-q8 their products (s,
+# sidx); the stamps of each kernel, in order, bound its PHASES
+STAMPS = {
+    "lstm_fwd.cu": (
+        ("      if (t > 0 && b0 == 0) grid_wait(", 0, False, "t"),
+        ("      if (t > 0 && b0 == 0) grid_wait(bar, (unsigned)t * "
+         "gridDim.x);", 1, True, "t"),
+        ("      if (wkg < p.wk) store_partial<NPW>(", 2, False, "t"),
+        ("      hl::cluster_wait();         // every block's partials are "
+         "written", 3, True, "t"),
+        ("      hl::cluster_arrive();       // this block is done with the "
+         "partials", 4, False, "t"),
+        ("    if (t + 1 < T) grid_arrive(bar);", 5, True, "t")),
+    "lstm_bwd.cu": (
+        ("        if (b0 == 0) grid_wait(", 0, False, "s"),
+        ("        if (b0 == 0) grid_wait(bar, (unsigned)s * gridDim.x);", 1,
+         True, "s"),
+        ("        if (wkg < p.wk) store_partial<NPW>(", 2, False, "s"),
+        ("        hl::cluster_wait();     // every block's partials are "
+         "written", 3, True, "s"),
+        ("        hl::cluster_arrive();   // this block is done with the "
+         "partials", 4, False, "s"),
+        ("    if (t >= 0) grid_arrive(bar);", 5, True, "s")),
+    "lstm_q8.cu": (
+        ("      if (b0 == 0) ph.wait(bar);", 0, False, "t"),
+        ("      if (b0 == 0) ph.wait(bar);", 1, True, "t"),
+        ("      if (wkg < p.wk) store_partial<NPW>(", 2, False, "t"),
+        ("      hl::cluster_wait();         // every block's partials are "
+         "written", 3, True, "t"),
+        ("      hl::cluster_arrive();       // this block is done with the "
+         "partials", 4, False, "t"),
+        ("    if (t + 1 < T) ph.arrive(bar);", 5, True, "t"),
+        ("        ph.wait(bar);\n        int acc", 0, False, "sidx"),
+        ("        ph.wait(bar);", 1, True, "sidx"),
+        ("        if (wkg < p.wk) store_partial<NPW>(", 2, False, "sidx"),
+        ("        hl::cluster_wait();     // every block's partials are "
+         "written", 3, True, "sidx"),
+        ("        hl::cluster_arrive();   // this block is done with the "
+         "partials", 4, False, "sidx"),
+        ("      // while the others arrive", 5, False, "sidx"),
+        ("      if (threadIdx.x < rows) {\n        const float m = fmaxf(",
+         6, False, "sidx"),
+        ("      ph.arrive(bar);\n    }\n  }\n", 7, False, "sidx")),
+}
+PHASES = {
+    "K1": ("wait", "product", "partials to the cluster barrier",
+           "gather and cell", "grid arrive"),
+    "K2": ("wait", "product", "partials to the cluster barrier",
+           "gather and delta", "grid arrive"),
+    "K1-q8": ("wait", "product", "partials to the cluster barrier",
+              "gather and cell", "grid arrive"),
+    # (the second arrive falls between the last stamp and the next
+    # step's first)
+    "K2-q8": ("wait for q", "product", "partials to the cluster barrier",
+              "gather and dequantize", "delta, row maxima, first arrive",
+              "dgates stores, wait for the maxima", "row scales, quantize"),
+}
 STAMP_DEF = """
-__device__ long long hl_phase[6][1024];
+__device__ long long hl_phase[8][1024];
 __device__ __forceinline__ void stamp(int ph, int step) {
   if (threadIdx.x == 0 && blockIdx.x == 0 && step < 1024)
     hl_phase[ph][step] = clock64();
@@ -104,16 +161,16 @@ ABLATIONS = {
         ("    mbar_wait(bars + 8 * slot, (par >> slot) & 1);\n", ""),
         ("      load(s + stages);\n", "")),
     "without the mma": (
-        ("      if (wkg >= wk || (wk > 1 && (s * (KS / 16) + kk) % wk != "
-         "wkg))", "      if (true)"),),
+        ("      if (wkg >= wk || (wk > 1 && (s * STEPS + kk) % wk != wkg))",
+         "      if (true)"),),
 }
 
 
 def phases_tree(dst, ablation=()):
     """A copy of this tree's port and chip_smoke.py at ``dst`` with a
-    clock64 stamp at each phase boundary of both persistent kernels and
-    a C entry point ``hl_lstm_phases`` that reads them back; ``ablation``
-    edits csrc/persist.cuh further ((old, new) pairs)."""
+    clock64 stamp at each phase boundary of the persistent kernels and C
+    entry points ``hl_lstm_phases_{fwd,bwd,q8}`` that read them back;
+    ``ablation`` edits csrc/persist.cuh further ((old, new) pairs)."""
     import shutil
     if dst.exists():
         shutil.rmtree(dst)
@@ -126,53 +183,70 @@ def phases_tree(dst, ablation=()):
         assert old in persist, old
         persist = persist.replace(old, new)
     (csrc / "persist.cuh").write_text(persist)
-    for name in ("lstm_fwd.cu", "lstm_bwd.cu"):
+    for name, stamps in STAMPS.items():
         src = (csrc / name).read_text()
-        src = src.replace("namespace persist_step {",
-                          STAMP_DEF + "\nnamespace persist_step {", 1)
+        ns = "namespace persist_q8 {" if name == "lstm_q8.cu" else \
+            "namespace persist_step {"
+        src = src.replace(ns, STAMP_DEF + "\n" + ns, 1)
         src += STAMP_READ.replace("hl_lstm_phases",
-                                  f"hl_lstm_phases_{name[5:8]}")
-        for file, anchor, ph, var in STAMPS:
-            if file != name:
-                continue
+                                  f"hl_lstm_phases_{name[5:-3]}")
+        for anchor, ph, after, var in stamps:
             assert anchor in src, (name, anchor)
             ind = anchor[:len(anchor) - len(anchor.lstrip())]
-            guard = "" if "grid_arrive" in anchor else "if (b0 == 0) "
-            st = f"{ind}{guard}stamp({abs(ph)}, {var});"
-            src = src.replace(anchor, f"{st}\n{anchor}" if ph >= 0 else
-                              f"{anchor}\n{st}", 1)
+            guard = "" if "t + 1 < T" in anchor or \
+                "t >= 0) grid_arrive" in anchor else "if (b0 == 0) "
+            st = f"{ind}{guard}stamp({ph}, {var});"
+            i = src.index(anchor)
+            if after:
+                i += len(anchor)
+                src = src[:i] + "\n" + st + src[i:]
+            else:
+                src = src[:i] + st + "\n" + src[i:]
         (csrc / name).write_text(src)
     kp = dst / "haloop_tpu_torch" / "kernels.py"
     k = kp.read_text().replace(
         '"hl_lstm_card": [_I, _P],',
         '"hl_lstm_card": [_I, _P],\n    "hl_lstm_phases_fwd": [_P],\n'
-        '    "hl_lstm_phases_bwd": [_P],')
+        '    "hl_lstm_phases_bwd": [_P],\n    "hl_lstm_phases_q8": [_P],')
     kp.write_text(k)
 
 
-def phase_report(tree):
-    """Per-step medians of the stamped phases (cycles), K1 and K2 at the
-    three timed shapes, block 0 (a full block)."""
+def phase_report(tree, q8=False):
+    """Per-step medians of the stamped phases (cycles), K1 and K2 (or
+    K1-q8, both modes, and K2-q8; K1-q8 on its persistent route at every
+    width) at the three timed shapes, block 0 (a full block)."""
     import numpy as np
     import torch
     cs, kernels, lstm, lstm_cuda = load(tree)
     lib = kernels.library()
     dev = torch.device("cuda", 0)
+    if q8:
+        lstm_cuda.Q8_FWD_MIN_H = 0
     for T, B, H in TIMED:
-        w, xp, h0, c0 = cs.lstm_inputs(torch, dev, T, B, H, torch.bfloat16)
-        bargs = bwd_inputs(torch, cs, lstm, T, B, H, w, xp, h0, c0)
-        for kind, fn, get in (
-                ("K1", lambda: lstm_cuda.lstm_fwd_cuda(w, xp, h0, c0),
-                 lib.hl_lstm_phases_fwd),
-                ("K2", lambda: lstm_cuda.lstm_bwd_cuda(*bargs),
-                 lib.hl_lstm_phases_bwd)):
+        if q8:
+            fargs, bargs = q8_inputs(torch, cs, lstm, T, B, H)
+            runs = (("K1-q8", lambda: lstm_cuda.lstm_fwd_q8_cuda(*fargs),
+                     lib.hl_lstm_phases_q8),
+                    ("K1-q8 residual", lambda: lstm_cuda.lstm_fwd_q8_cuda(
+                        *fargs, residuals=True), lib.hl_lstm_phases_q8),
+                    ("K2-q8", lambda: lstm_cuda.lstm_bwd_q8_cuda(*bargs),
+                     lib.hl_lstm_phases_q8))
+        else:
+            w, xp, h0, c0 = cs.lstm_inputs(torch, dev, T, B, H,
+                                           torch.bfloat16)
+            bargs = bwd_inputs(torch, cs, lstm, T, B, H, w, xp, h0, c0)
+            runs = (("K1", lambda: lstm_cuda.lstm_fwd_cuda(w, xp, h0, c0),
+                     lib.hl_lstm_phases_fwd),
+                    ("K2", lambda: lstm_cuda.lstm_bwd_cuda(*bargs),
+                     lib.hl_lstm_phases_bwd))
+        for kind, fn, get in runs:
             fn()
             torch.cuda.synchronize()
-            buf = np.zeros((6, 1024), np.int64)
+            buf = np.zeros((8, 1024), np.int64)
             kernels.check(get(buf.ctypes.data), "hl_lstm_phases")
             d = buf[:, 2:min(T, 1024) - 2]   # steps clear of the ends
             cells = [f"{name} {np.median(d[i + 1] - d[i]):.0f}"
-                     for i, name in enumerate(PHASES)]
+                     for i, name in enumerate(PHASES[kind.split()[0]])]
             step = np.median(d[0, 1:] - d[0, :-1])
             print(f"{kind} ({T}, {B}, {H}) cycles a step: {step:.0f}; " +
                   ", ".join(cells), flush=True)
@@ -307,9 +381,10 @@ def times(tree):
     return res
 
 
-def device_ms(torch, fn):
+def device_ms(torch, fn, events=False):
     """The device's busy time in one call of ``fn`` (the union of its
-    kernels' spans), from torch.profiler after a traced warm-up call."""
+    kernels' spans), from torch.profiler after a traced warm-up call; with
+    ``events`` also the count of device events."""
     from torch.profiler import ProfilerActivity, profile, schedule
     cuda = torch.autograd.DeviceType.CUDA
     spans = []
@@ -335,7 +410,7 @@ def device_ms(torch, fn):
         elif e > end:
             busy += e - end
             end = e
-    return busy / 1e6
+    return (busy / 1e6, len(spans)) if events else busy / 1e6
 
 
 def rates(tree):
@@ -384,6 +459,190 @@ def rates(tree):
     return out
 
 
+class variant:
+    """lstm_cuda's units a block may own set to a variant's, and K1-q8
+    persistent at every width, for the duration (a probe of one process
+    only)."""
+
+    def __init__(self, lstm_cuda, units):
+        self.m, self.units = lstm_cuda, units
+
+    def __enter__(self):
+        self.saved = self.m.UNITS, self.m.Q8_FWD_MIN_H
+        self.m.UNITS = self.units or self.m.UNITS
+        self.m.Q8_FWD_MIN_H = 0
+
+    def __exit__(self, *exc):
+        self.m.UNITS, self.m.Q8_FWD_MIN_H = self.saved
+
+
+def q8_inputs(torch, cs, lstm, T, B, H, bwd=True):
+    """(fwd args, bwd args) of K1-q8 and K2-q8 as chip_smoke.py phase 5b
+    makes them: wq, s from the bf16 W; K2-q8 on the plain residuals (None
+    without ``bwd``)."""
+    dev = torch.device("cuda", 0)
+    w, xp, h0, c0 = cs.lstm_inputs(torch, dev, T, B, H, torch.bfloat16)
+    wq, s = lstm.quantize_rows(w)
+    if not bwd:
+        return (wq, s, xp, h0, c0), None
+    _, _, _, acts, cs_ = lstm.lstm_scan_q8(wq, s, xp, h0, c0,
+                                           residuals=True)
+    g = torch.Generator().manual_seed(T + H)
+    dys = torch.randn((T, B, H), generator=g).to(dev, torch.bfloat16)
+    dh = torch.randn((B, H), generator=g).to(dev) * 0.1
+    dc = torch.randn((B, H), generator=g).to(dev) * 0.1
+    return ((wq, s, xp, h0, c0),
+            (dys, acts, cs_, c0.to(torch.bfloat16), wq, s, dh, dc))
+
+
+def q8_runs(lstm_cuda, fargs, bargs, **kw):
+    """K1-q8, K1-q8 with residuals and K2-q8 once each: their outputs in
+    one tuple."""
+    return (*lstm_cuda.lstm_fwd_q8_cuda(*fargs, **kw),
+            *lstm_cuda.lstm_fwd_q8_cuda(*fargs, residuals=True, **kw),
+            *lstm_cuda.lstm_bwd_q8_cuda(*bargs, **kw))
+
+
+def q8_checks(tree):
+    import torch
+    cs, kernels, lstm, lstm_cuda = load(tree)
+    kernels.library()
+    print(f"build {kernels.build_seconds} s", flush=True)
+    for line in ptxas_lines(kernels.build_log, "persist_q8"):
+        print("ptxas:", line, flush=True)
+    dev = torch.device("cuda", 0)
+    sms, smem, ncl = lstm_cuda.card(dev)
+    bad = []
+    names = ("ys", "h", "c", "ys_r", "h_r", "c_r", "acts", "cs", "dgates",
+             "dh0", "dc0")
+    for T, B, H in Q8_CHECK_SHAPES:
+        fargs, bargs = q8_inputs(torch, cs, lstm, T, B, H)
+        routes = {k: lstm_cuda.route(k, torch.bfloat16, H, B, sms, smem,
+                                     ncl[k]) for k in ("fwd_q8", "bwd_q8")}
+        before = dict(lstm_cuda.route_launches)
+        got = q8_runs(lstm_cuda, fargs, bargs)
+        torch.cuda.synchronize()
+        took = {k: v - before[k] for k, v in lstm_cuda.route_launches.items()
+                if v != before[k]}
+        want_took = {f"fwd_q8_{routes['fwd_q8'][0]}": 2,
+                     f"bwd_q8_{routes['bwd_q8'][0]}": 1}
+        twice = all(torch.equal(a, b) for a, b in
+                    zip(got, q8_runs(lstm_cuda, fargs, bargs)))
+        step = q8_runs(lstm_cuda, fargs, bargs, per_step=True)
+        differ = [n for n, a, b in zip(names, got, step)
+                  if not torch.equal(a, b)]
+        vdiffer = {}
+        for label, units in Q8_VARIANTS:
+            with variant(lstm_cuda, units):
+                out = q8_runs(lstm_cuda, fargs, bargs)
+            vdiffer[label] = [n for n, a, b in zip(names, got, out)
+                              if not torch.equal(a, b)]
+        wq, s, xp, h0, c0 = fargs
+        dys, acts, cs_, c0r, _, _, dh, dc = bargs
+        want = (*lstm.lstm_scan_q8(wq, s, xp, h0, c0),
+                *lstm.lstm_scan_q8(wq, s, xp, h0, c0, residuals=True),
+                *lstm.lstm_scan_bwd_q8(dys, acts,
+                                       torch.cat([c0r[None], cs_[:-1]]),
+                                       cs_, wq, s, dh, dc))
+        errs = [cs.rel_err(a, b) for a, b in zip(got, want)]
+        limits = [cs.K1Q8_REL] * 8 + [cs.K2Q8_REL[k]
+                                      for k in ("dgates", "dh0", "dc0")]
+        ok = (all(e <= lim for e, lim in zip(errs, limits)) and twice and
+              took == want_took and not differ and
+              not any(vdiffer.values()))
+        print(f"{'ok ' if ok else 'BAD'} (T, B, H) = {(T, B, H)}: routes "
+              f"{took}; rel err K1-q8 {max(errs[:8]):.2e}, dgates "
+              f"{errs[8]:.2e} dh0 {errs[9]:.2e} dc0 {errs[10]:.2e}; same "
+              f"bits twice {twice}; outputs other than the per-step "
+              f"kernels' {differ}; other than the variants' {vdiffer}; "
+              f"plans fwd_q8 {routes['fwd_q8'][1]} bwd_q8 "
+              f"{routes['bwd_q8'][1]}", flush=True)
+        if not ok:
+            bad.append((T, B, H))
+    return bad
+
+
+def q8_times(tree):
+    import torch
+    cs, kernels, lstm, lstm_cuda = load(tree)
+    kernels.library()
+    res = {}
+    variants = hasattr(lstm_cuda, "Q8_FWD_MIN_H")
+    for T, B, H in TIMED:
+        fargs, bargs = q8_inputs(torch, cs, lstm, T, B, H)
+        key = f"({T}, {B}, {H})"
+
+        def timed(label):
+            res[f"K1-q8 {label}{key}"] = cs.cuda_ms(
+                lambda: lstm_cuda.lstm_fwd_q8_cuda(*fargs))
+            res[f"K1-q8 residual {label}{key}"] = cs.cuda_ms(
+                lambda: lstm_cuda.lstm_fwd_q8_cuda(*fargs, residuals=True))
+            res[f"K2-q8 {label}{key}"] = cs.cuda_ms(
+                lambda: lstm_cuda.lstm_bwd_q8_cuda(*bargs))
+        timed("")
+        if variants:
+            res[f"K1-q8 per-step {key}"] = cs.cuda_ms(
+                lambda: lstm_cuda.lstm_fwd_q8_cuda(*fargs, per_step=True))
+            res[f"K2-q8 per-step {key}"] = cs.cuda_ms(
+                lambda: lstm_cuda.lstm_bwd_q8_cuda(*bargs, per_step=True))
+            for label, units in Q8_VARIANTS:
+                with variant(lstm_cuda, units):
+                    if label.startswith("K1-q8"):
+                        res[f"{label} {key}"] = cs.cuda_ms(
+                            lambda: lstm_cuda.lstm_fwd_q8_cuda(*fargs))
+                        res[f"{label}, residual mode {key}"] = cs.cuda_ms(
+                            lambda: lstm_cuda.lstm_fwd_q8_cuda(
+                                *fargs, residuals=True))
+                    else:
+                        res[f"{label} {key}"] = cs.cuda_ms(
+                            lambda: lstm_cuda.lstm_bwd_q8_cuda(*bargs))
+    if variants:
+        # K1-q8's persistent and per-step kernels over short sequences
+        # (Q8_FWD_MIN_H: 0 here, every width persistent), both modes
+        min_h, lstm_cuda.Q8_FWD_MIN_H = lstm_cuda.Q8_FWD_MIN_H, 0
+        for T, B, H in Q8_SHORT:
+            fargs, _ = q8_inputs(torch, cs, lstm, T, B, H, bwd=False)
+            for r in (False, True):
+                for step in (False, True):
+                    res[f"K1-q8{' residual' if r else ''}"
+                        f"{' per-step' if step else ' persistent'} "
+                        f"({T}, {B}, {H})"] = cs.cuda_ms(
+                        lambda: lstm_cuda.lstm_fwd_q8_cuda(
+                            *fargs, residuals=r, per_step=step))
+        lstm_cuda.Q8_FWD_MIN_H = min_h
+    return res
+
+
+def q8_rates(tree):
+    """Utterances/s of the --rnn-q8 paths K1-q8 and K2-q8 serve (medians
+    of 5 host-timed calls that end in a host read), and a CTC train
+    step's device busy time and device events."""
+    import torch
+    cs, kernels, _, _ = load(tree)
+    kernels.library()
+    dev = torch.device("cuda", 0)
+    out = {}
+    system = cs.make_system(torch, dev, "--arch", "lstm:512", "--rnn-q8")
+    _, batch = cs.eval_batch(system)
+
+    def step():
+        system.train_step(*batch)
+    ms, _ = cs.host_ms(torch, step)
+    out["lstm:512 --rnn-q8 CTC train utt/s"] = 48 / ms * 1e3
+    busy, events = device_ms(torch, step, events=True)
+    out["lstm:512 --rnn-q8 CTC train step device ms"] = busy
+    out["lstm:512 --rnn-q8 CTC train step device events"] = events
+
+    def serve():
+        _, feats, feat_lens, _ = system._forward_impl(*batch, train=False)
+        return [t.cpu() for t in system._decode_impl(feats, feat_lens,
+                                                     train=False)]
+    with torch.inference_mode():
+        ms, _ = cs.host_ms(torch, serve)
+    out["lstm:512 --rnn-q8 serving utt/s"] = 48 / ms * 1e3
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", type=Path, default=HERE)
@@ -392,6 +651,8 @@ def main():
     ap.add_argument("--kernels-only", action="store_true",
                     help="with --against or --times-only: no rates")
     ap.add_argument("--phases", action="store_true")
+    ap.add_argument("--q8", action="store_true",
+                    help="K1-q8 and K2-q8 instead of K1 and K2")
     ap.add_argument("--phase-report", action="store_true",
                     help=argparse.SUPPRESS)
     a = ap.parse_args()
@@ -402,7 +663,7 @@ def main():
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     if a.phase_report:
-        phase_report(a.tree)
+        phase_report(a.tree, a.q8)
         return
     if a.phases:
         print(card, flush=True)
@@ -411,19 +672,21 @@ def main():
             dst = HERE / "build" / f"lstm_phases{i}"
             phases_tree(dst, edits)
             subprocess.run([sys.executable, __file__, "--tree", str(dst),
-                            "--phase-report"], check=True)
+                            "--phase-report"] + (["--q8"] if a.q8 else []),
+                           check=True)
         return
     if a.times_only:
-        res = times(a.tree)
+        res = (q8_times if a.q8 else times)(a.tree)
         if not a.kernels_only:
-            res.update(rates(a.tree))
+            res.update((q8_rates if a.q8 else rates)(a.tree))
         print(json.dumps(res), flush=True)
         return
     print(card, flush=True)
     if a.against:
         runs = []
         for tree in (a.against, a.tree, a.tree, a.against):
-            flags = ["--kernels-only"] if a.kernels_only else []
+            flags = (["--kernels-only"] if a.kernels_only else []) + \
+                (["--q8"] if a.q8 else [])
             r = subprocess.run([sys.executable, __file__, "--tree",
                                 str(tree), "--times-only", *flags],
                                capture_output=True, text=True)
@@ -433,13 +696,13 @@ def main():
         for label in runs[0][1]:
             cells = ", ".join(f"{'this' if t == a.tree else 'parent'} "
                               f"{res[label]:.4f}" for t, res in runs)
-            unit = "" if label.endswith("/s") else " ms"
+            unit = "" if label.endswith(("/s", "events")) else " ms"
             print(f"{label}:{unit} {cells}", flush=True)
         print(json.dumps({"card": card, "runs": [
             {"tree": str(t), "ms": res} for t, res in runs]}), flush=True)
         return
-    bad = checks(a.tree)
-    for label, ms in times(a.tree).items():
+    bad = (q8_checks if a.q8 else checks)(a.tree)
+    for label, ms in (q8_times if a.q8 else times)(a.tree).items():
         print(f"{label}: {ms:.4f} ms", flush=True)
     if bad:
         raise SystemExit(f"disagree with the plain versions: {bad}")

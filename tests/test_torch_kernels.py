@@ -397,6 +397,51 @@ def test_lstm_q8_bwd_kernel_matches_plain(cuda, T, B, H, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H,dtype", Q8_SHAPES + [
+    (6, 48, 2048, torch.bfloat16),      # the plan does not fit: per-step
+    (9, 37, 200, torch.bfloat16),       # H % 16 != 0: the CUDA-core path
+    (1, 100, 1024, torch.bfloat16),     # T = 1, three batch tiles
+    (20, 48, 80, torch.bfloat16)])      # persistent, H % 32 != 0
+def test_lstm_q8_routes_give_the_per_step_kernels_bits(cuda, T, B, H, dtype):
+    """K1-q8 (both modes) and K2-q8 take the route ``lstm_cuda.route``
+    gives for this card and shape, one count on it per call (the
+    persistent kernels at the main paths' widths in bf16, K1-q8 from
+    Q8_FWD_MIN_H); the route's outputs are bit for bit those of the
+    per-step kernels (``per_step=True``): the integer sums are exact in
+    any order, and the elementwise code is the same."""
+    w, wq, s, xp, h0, c0 = _lstm_q8_inputs(T, B, H, dtype, cuda,
+                                           seed=T + B + H)
+    sms, smem, ncl = lstm_cuda.card(cuda)
+    routes = {k: lstm_cuda.route(k, dtype if k == "fwd_q8" else
+                                 torch.bfloat16, H, B, sms, smem,
+                                 ncl[k])[0] for k in ("fwd_q8", "bwd_q8")}
+    if dtype == torch.bfloat16 and H in (1536, 1024, 512):
+        assert routes["bwd_q8"] == "persist"
+        assert routes["fwd_q8"] == ("persist" if H >= lstm_cuda.Q8_FWD_MIN_H
+                                    else "tc_step")
+    fwd, took = _route_taken(lambda: lstm_cuda.lstm_fwd_q8_cuda(
+        wq, s, xp, h0, c0, residuals=True))
+    assert took == {f"fwd_q8_{routes['fwd_q8']}": 1}
+    step = lstm_cuda.lstm_fwd_q8_cuda(wq, s, xp, h0, c0, residuals=True,
+                                      per_step=True)
+    assert all(torch.equal(a, b) for a, b in zip(fwd, step))
+    plain, took = _route_taken(lambda: lstm_cuda.lstm_fwd_q8_cuda(
+        wq, s, xp, h0, c0))
+    assert took == {f"fwd_q8_{routes['fwd_q8']}": 1}
+    assert all(torch.equal(a, b) for a, b in zip(plain, fwd))
+    acts, cs = fwd[3], fwd[4]
+    g = torch.Generator().manual_seed(T + 2)
+    dys = torch.randn((T, B, H), generator=g).to(cuda, torch.bfloat16)
+    dh = torch.randn((B, H), generator=g).to(cuda) * 0.1
+    dc = torch.randn((B, H), generator=g).to(cuda) * 0.1
+    bargs = (dys, acts, cs, c0.to(torch.bfloat16), wq, s, dh, dc)
+    bwd, took = _route_taken(lambda: lstm_cuda.lstm_bwd_q8_cuda(*bargs))
+    assert took == {f"bwd_q8_{routes['bwd_q8']}": 1}
+    step = lstm_cuda.lstm_bwd_q8_cuda(*bargs, per_step=True)
+    assert all(torch.equal(a, b) for a, b in zip(bwd, step))
+
+
+@pytest.mark.cuda
 def test_lstm_q8_autograd_launches_k1q8_residual_and_k2q8(cuda):
     """lstm_scan(q8=True) under autograd runs the LSTMScanQ8 Function:
     K1-q8 with residuals and K2-q8, no exact-mode kernel; its grads
