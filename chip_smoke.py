@@ -73,15 +73,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      (the causal diagonal off by one, the last partial key tile dropped)
      that must exceed the limit
  14. kernel K10 (fused lm_head + cross-entropy) against the plain
-     ce_nll_lse at hap's (N=16384, V=50304, D=768) in bf16, and fp32 at
-     N=2048
+     ce_nll_lse at hap's (N=16384, V=50304, D=768) and at (4000, 4099, 768)
+     in bf16 (the route each call took: the warp-specialized kernel; two
+     planted faults emulated through K10 that must exceed the limit: the
+     last vocab tile's mask dropped, one chunk left out of the merge), and
+     fp32 at N=2048; the cuBLAS product torch.mm(x, w.T) timed alone beside
  15. kernel K11 (decode attention) against the plain decode_attend at hat
      --batch's (B=32, S=256, E=768, H=12) with starts, and at B=1
  16. GPT-2 small (``decoder``) scoring: a random checkpoint written by
      ``python -m haloop_tpu_torch.init --seed 0 decoder``, then
      forward_all on 16 x 1024 packed rows of 64-token segments and on 32 x
      512 unpacked rows (counts reset just before each, read just after):
-     exact launches, kernel path against the plain path (beside plain
+     exact launches (every K10 call on its warp-specialized route), kernel
+     path against the plain path (beside plain
      bf16 against plain fp32, and a planted fault the gate must catch:
      the segment mask dropped), real tokens/s, peak memory, profiles
  17. GPT-2 small generation: generate at B=32 (left-padded 17-32-token
@@ -102,7 +106,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      bf16 with the planted fault of the diagonal off by one)
  20. GPT-2 small (``decoder``) training, one hala update at batch 8 x 1024
      (accumulation 1; counts reset just before, read just after): exact
-     launches K5-lse 12, K6a 12, K6b 12, K10 1; the kernel path's loss and
+     launches K5-lse 12, K6a 12, K6b 12, K10 1 (on its warp-specialized
+     route); the kernel path's loss and
      gradients against the plain path's (beside plain bf16 against plain
      fp32, and two planted faults the gate must catch: K6b without the
      causal mask, dq without its scale), train tokens/s and the model-FLOP
@@ -140,7 +145,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      padding attended) that must exceed that limit; then hat --bytes --batch
      through its entry point on two 3456-byte prompts
  25. --q8 serving of GPT-2 small (quantize_gpt_params, then the bf16
-     cast): hap on 16 x 1024 packed rows (K7, K10 once, no K13) and
+     cast): hap on 16 x 1024 packed rows (K7, K10 once on its
+     warp-specialized route, no K13) and
      generate at B=32 and B=1, 128 tokens (exactly 49 K13 launches a
      decode step), each with the counts reset just before; the kernel
      path against the plain path, and the q8 path against the bf16 path
@@ -1100,8 +1106,10 @@ def counts():
 
 def reset_counts():
     from haloop_tpu_torch.nn import lstm_cuda
+    from haloop_tpu_torch.ops import fused_ce_cuda
     for mod, attr in _counters().values():
         setattr(mod, attr, 0)
+    fused_ce_cuda.wg_launches = 0
     for key in lstm_cuda.route_launches:
         lstm_cuda.route_launches[key] = 0
 
@@ -2139,30 +2147,81 @@ def phase_flash(torch, dev):
     return by_shape(k5), by_shape(k7)
 
 
+def ce_faults(torch, fused_ce_cuda, x, w, t, nll_e, lse_e):
+    """K10's planted faults, emulated through K10 itself, against the
+    plain version's (nll_e, lse_e): the last vocab tile's mask dropped (w
+    padded with zero rows to the bf16 plan's whole 256-column tiles, whose
+    logits are then 0 and count in the sum), and one chunk of the plan
+    left out of the merge (w without that chunk's rows, a target inside it
+    adding a target term of 0, those after it moved down). Each must read
+    beyond CE_TOL. -> {fault: max |d|}."""
+    from haloop_tpu_torch import kernels
+    N, D = x.shape
+    V = w.shape[0]
+    p = fused_ce_cuda.plan(N, V, D, kernels.multiprocessors(x.device))
+    padded = torch.zeros((p.vocab_tiles * fused_ce_cuda.TC_COLS, D),
+                         dtype=w.dtype, device=w.device)
+    padded[:V] = w
+    vt0, vt1 = fused_ce_cuda.vocab_range(p, p.chunks // 2)
+    c0, c1 = vt0 * fused_ce_cuda.TC_COLS, min(V, vt1 * fused_ce_cuda.TC_COLS)
+    cut = torch.cat([w[:c0], w[c1:]])
+    tc = torch.where(t < c0, t, torch.where(t < c1, -1, t - (c1 - c0)))
+    out = {}
+    for name, args in (("the last tile's V mask dropped", (x, padded, t)),
+                       (f"chunk {p.chunks // 2} of {p.chunks} left out of "
+                        f"the merge", (x, cut, tc))):
+        if name.startswith("the last") and padded.shape[0] == V:
+            continue                 # no partial tile: nothing to mask
+        nll, lse = fused_ce_cuda.ce_fwd_cuda(*args)
+        err = max((nll - nll_e).abs().max().item(),
+                  (lse - lse_e).abs().max().item())
+        print(f"  planted fault, {name}: max|dnll, dlse|={err:.3e} (must "
+              f"exceed the limit)", flush=True)
+        check(not all(within_ce(a, b) for a, b in ((nll, nll_e),
+                                                    (lse, lse_e))),
+              f"K10's check passes a planted fault: {name}")
+        out[name] = err
+    return out
+
+
+def within_ce(got, want):
+    return bool(((got - want).abs() <= CE_TOL["atol"] + CE_TOL["rtol"] *
+                 want.abs()).all())
+
+
 def phase_fused_ce(torch, dev):
-    """K10 at hap's loss shape in bf16, and in fp32 at N=2048."""
+    """K10 at hap's loss shape in bf16 (the route it took, two planted
+    faults), at a ragged shape (rows and vocab off the tiles), and in fp32
+    at N=2048; times beside the plain version, the library call, the
+    cuBLAS product alone and the bound."""
     from haloop_tpu_torch.ops import fused_ce, fused_ce_cuda
     reports = {}
-    V, D = 50304, 768
-    for name, N in (("bfloat16", 16384), ("float32", 2048)):
+    D = 768
+    for name, N, V in (("bfloat16", 16384, 50304), ("bfloat16", 4000, 4099),
+                       ("float32", 2048, 50304)):
         dtype = getattr(torch, name)
         g = torch.Generator().manual_seed(N)
         x = torch.randn((N, D), generator=g).to(dev, dtype)
         w = (torch.randn((V, D), generator=g) * 0.02).to(dev, dtype)
-        t = torch.randint(1, 50257, (N,), generator=g).to(dev)
+        t = torch.randint(1, min(V, 50257), (N,), generator=g).to(dev)
+        before = fused_ce_cuda.wg_launches
         nll, lse = fused_ce_cuda.ce_fwd_cuda(x, w, t)
         torch.cuda.synchronize()
+        design = "warp-specialized (wgmma, TMA)" if \
+            fused_ce_cuda.wg_launches == before + 1 else "CUDA cores"
+        check(design.startswith("warp") == (dtype == torch.bfloat16),
+              f"K10 {name} took the {design} kernel")
         nll_e, lse_e = fused_ce.ce_nll_lse(x, w, t)
         err = max((nll - nll_e).abs().max().item(),
                   (lse - lse_e).abs().max().item())
-        ok = all(bool(((a - b).abs() <= CE_TOL["atol"] + CE_TOL["rtol"] *
-                       b.abs()).all()) for a, b in ((nll, nll_e),
-                                                    (lse, lse_e)))
+        ok = within_ce(nll, nll_e) and within_ce(lse, lse_e)
         again = torch.equal(nll, fused_ce_cuda.ce_fwd_cuda(x, w, t)[0])
-        print(f"K10 fused_ce N={N} V={V} D={D} {name}: max|dnll, dlse|="
-              f"{err:.3e} (tol {CE_TOL}); the same bits on a second run: "
-              f"{again}", flush=True)
+        print(f"K10 fused_ce N={N} V={V} D={D} {name}, {design} kernel: "
+              f"max|dnll, dlse|={err:.3e} (tol {CE_TOL}); the same bits on "
+              f"a second run: {again}", flush=True)
         check(ok and again, f"K10 disagrees with ce_nll_lse ({name})")
+        faults = ce_faults(torch, fused_ce_cuda, x, w, t, nll_e, lse_e) \
+            if dtype == torch.bfloat16 else {}
         del nll_e, lse_e
         kernel = lambda: fused_ce_cuda.ce_fwd_cuda(x, w, t)
         ms = cuda_ms(kernel)
@@ -2173,17 +2232,33 @@ def phase_fused_ce(torch, dev):
             return torch.logsumexp(logits.float(), -1) - \
                 logits.gather(1, t[:, None])[:, 0].float()
         lib_ms = cuda_ms(library)
+        product_ms = cuda_ms(lambda: torch.mm(x, w.T))
         flops = 2.0 * N * V * D
         nbytes = x.element_size() * (N * D + V * D) + 4 * 3 * N
         b_ms, b_by = bound(nbytes, flops, CE_ELEM * N * V) \
             if dtype == torch.bfloat16 else \
             bound(nbytes, 0, flops + CE_ELEM * N * V)
-        print(f"K10 fused_ce N={N} {name}: kernel {ms:.3f} ms, plain "
+        print(f"K10 fused_ce N={N} V={V} {name}: kernel {ms:.3f} ms, plain "
               f"{plain_ms:.3f} ms, torch.logsumexp(x @ w.T) - gather "
-              f"{lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
-        reports[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+              f"{lib_ms:.3f} ms, cuBLAS torch.mm(x, w.T) alone "
+              f"{product_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})",
+              flush=True)
+        reports[f"{name} N={N} V={V}"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms, product_ms=product_ms,
+            design=design, planted_faults=faults)
     return by_shape(reports)
+
+
+def check_ce_route(path, launches):
+    """Every K10 call since reset_counts took the bf16 warp-specialized
+    kernel."""
+    from haloop_tpu_torch.ops import fused_ce_cuda
+    print(f"{path}: K10 launches {launches['fused_ce']}, on the "
+          f"warp-specialized route {fused_ce_cuda.wg_launches}", flush=True)
+    check(launches["fused_ce"] > 0 and
+          fused_ce_cuda.wg_launches == launches["fused_ce"],
+          f"{path}: K10 did not take the warp-specialized kernel")
 
 
 def phase_decode(torch, dev):
@@ -2626,6 +2701,7 @@ def phase_hap(torch, dev, ckpt, card):
         print(f"GPT-2 small ({n_params} params, bf16) {what}: launches {got}",
               flush=True)
         check_counts(what, got, expect)
+        check_ce_route(what, got)
         launches[what] = got
         valid = batch[1] != 0
         check(bool(torch.isfinite(nll).all()) and nll.shape ==
@@ -2989,6 +3065,7 @@ def phase_q8_serving(torch, dev, ckpt, card):
     got = counts()
     print(f"{what}: launches {got}", flush=True)
     check_counts(what, got, dict(flash_packed=cfg.n_layer, fused_ce=1))
+    check_ce_route(what, got)
     launches[what] = got
     check(bool(torch.isfinite(nll).all()), f"{what}: malformed NLLs")
     with plain_kernels():
@@ -3290,6 +3367,7 @@ def phase_hala(torch, dev, ckpt, card):
     check_counts("hala update", launches, dict(
         flash_fwd=12, flash_fwd_lse=12, flash_bwd_dq=12, flash_bwd_dkv=12,
         fused_ce=1))
+    check_ce_route("hala update", launches)
     check(math.isfinite(loss) and math.isfinite(gnorm) and step.updates == 1,
           "the hala update was not applied")
 

@@ -1,5 +1,5 @@
-// Warp-level tensor-core primitives shared by flash_fwd.cu, fused_ce.cu,
-// q8_matmul.cu and lstm_q8.cu: ldmatrix loads from shared memory, the bf16
+// Warp-level tensor-core primitives shared by flash_fwd.cu, q8_matmul.cu,
+// lstm_q8.cu and the other mma.sync kernels: ldmatrix loads from shared memory, the bf16
 // m16n8k16 mma.sync with fp32 accumulators and the int8 m16n8k32 one with
 // int32 accumulators, with the PTX fragment layouts they imply.
 //

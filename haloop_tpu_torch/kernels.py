@@ -67,8 +67,8 @@ _SIGNATURES = {
     # q, k, v, do, kv_lengths, lse, scratch, dk, dv, dims (host int[29]),
     # causal, t0, bf16, stream
     "hl_flash_bwd_dkv": [_P] * 10 + [_I] * 3 + [_P],
-    # x, w, targets, nll, lse, partial, N, V, D, chunks, bf16, stream
-    "hl_fused_ce": [_P] * 6 + [_I] * 5 + [_P],
+    # x, w, targets, nll, lse, partial, N, V, D, chunks, grid, bf16, stream
+    "hl_fused_ce": [_P] * 6 + [_I] * 6 + [_P],
     # q, k_new, v_new, k_cache, v_cache, starts, y, B, S, E, H, length,
     # q_sb, kn_sb, vn_sb, bf16, stream
     "hl_decode_attn": [_P] * 7 + [_I] * 9 + [_P],

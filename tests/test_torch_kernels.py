@@ -31,7 +31,8 @@ fp32 value that lands on the other side of a rounding boundary moves a
 term by one bf16 step, and the outputs are bf16 (the same criterion
 holds the CE backward with bf16 operands against fp32 products). K10
 atol 1e-3, rtol 1e-4: a logsumexp over up to 50k fp32 logits summed in
-another order, with the fast exp. K11 and K12: the caches
+another order, with the fast exp; a target outside [0, V) adds a target
+term of 0. K11 and K12: the caches
 bit for bit; y 1e-5 in fp32, 2e-2 in bf16 (the JAX package's bounds,
 tests/test_decode_attn.py); K12 in bf16 also max |d| <= 1e-2 of the
 largest |y|, since over thousands of rows |y| falls far below 2e-2 (one
@@ -1237,28 +1238,37 @@ def test_flash_autograd_functions(cuda):
 
 # -------------------------------------------- fused lm_head + CE (K10)
 
-CE_CASES = [
-    (300, 5000, 64),
-    (129, 4099, 768),                     # tiles off every edge
-    (1, 50304, 768),
-    (2048, 50304, 768),                   # GPT-2 small's head
-]
+# the bf16 kernel's tile edges: 128 rows (64 a consumer warpgroup), 256
+# vocab columns, 64-column k slices; GPT-2's vocabularies; hala's rows
+CE_CASES = [(N, V, D) for D in (64, 768) for V in (255, 256, 257, 4099)
+            for N in (1, 63, 64, 65, 127, 129)]
+CE_CASES += [(N, V, 768) for V in (50257, 50304) for N in (1, 129, 8192)]
+CE_CASES += [(300, 5000, 64), (2048, 50304, 768)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,V,D", CE_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_ce_kernel_matches_plain(cuda, N, V, D, dtype):
+    """Targets at column 0, at V - 1 (inside a partial last tile where V
+    is not a multiple of 256) and at V and beyond (a target term of 0);
+    the same bits on a second call; one launch of the route a call."""
     g = torch.Generator().manual_seed(N + V)
     x = torch.randn((N, D), generator=g).to(cuda, dtype)
     w = (torch.randn((V, D), generator=g) * 0.1).to(cuda, dtype)
     t = torch.randint(0, V, (N,), generator=g).to(cuda)
     t[0] = V - 1
-    before = fused_ce_cuda.launches
+    if N > 3:
+        t[1], t[2], t[3] = 0, V, V + 1000
+    before = fused_ce_cuda.launches, fused_ce_cuda.wg_launches
     nll, lse = fused_ce_cuda.ce_fwd_cuda(x, w, t)
     torch.cuda.synchronize()
-    assert fused_ce_cuda.launches == before + 1
-    nll_e, lse_e = fused_ce.ce_nll_lse(x, w, t)
+    bf16 = dtype == torch.bfloat16
+    assert (fused_ce_cuda.launches, fused_ce_cuda.wg_launches) == \
+        (before[0] + 1, before[1] + bf16)
+    valid = (t >= 0) & (t < V)
+    nll_e, lse_e = fused_ce.ce_nll_lse(x, w, t.clamp(0, V - 1))
+    nll_e = torch.where(valid, nll_e, lse_e)
     torch.testing.assert_close(lse, lse_e, atol=1e-3, rtol=1e-4)
     torch.testing.assert_close(nll, nll_e, atol=1e-3, rtol=1e-4)
     # the chunks are merged in a fixed order
