@@ -30,8 +30,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      block's own columns; K1-q8's, one persistent block on a step-old
      hq), times beside the bound (no PyTorch call computes an int8 LSTM;
      the exact mode's cuDNN times beside)
-  6. kernel K4 (CTC backward lattice) against the plain ctc_grad, and the
-     same bits on two more runs
+  6. kernel K4 (CTC backward lattice) against the plain ctc_grad, its
+     plan and one launch, the same bits on two more runs, and three
+     planted faults that must read beyond CTC_GRAD_TOL: the d em rows
+     one frame off, and the skips dropped that cross the sweep's warp
+     edges and lane edges (K8b's likewise in 9, its label edges)
   7. the training slice through its entry point: ``hac --arch lstm:512
      --train head:sinusoids0 --eval head:sinusoids0 --save last+best``
      (counts reset just before, read just after), ``--init last.pt
@@ -44,7 +47,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      widths (phases 2 and 5: H=1024 encoder, H=512 prediction net)
   9. kernels K8a/K8b (Star-CTC lattice, forward and backward) against the
      plain star_forward_history / star_grad at lstm:512's train shapes;
-     K8b's same bits on two more runs
+     K8b's same bits on two more runs, its planted faults, and the
+     masked back edge it leaves out adding nothing to star_grad; then
+     K3, K4, K8a and K8b on long lattices (S = 2049 and 2051) against
+     their plain versions
  10. rnn-transducer:lstm:512 at full width, batch 16 x 1200 frames, U=24:
      one train step and one transcription batch through ``loop.System``
      (counts reset just before each, read just after), kernel path
@@ -434,6 +440,116 @@ def k4_bound(input_lengths, N, T, S, U, C):
     # lengths, loss and g in; the whole (T, N, C) gradient out
     nbytes = 4 * (2 * cells + N * U + 4 * N + T * N * C)
     return bound(nbytes, 0, K4_ELEM * cells)
+
+
+def cycles_a_frame(ms, input_lengths, T):
+    """A lattice kernel's time over its longest item's frames (the serial
+    chain every item's sweep is), in cycles at the card's maximum SM
+    clock (nvidia-smi): the yardstick of a sweep, beside its bound."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, timeout=60,
+                       check=True)
+    mhz = float(r.stdout.split()[0])
+    frames = int(input_lengths.clamp(0, T).max())
+    return ms * 1e3 * mhz / max(frames, 1), mhz
+
+
+def lattice_faults(torch, name, grad, args, want, faults):
+    """Planted faults of a lattice backward (K4 or K8b), each computed from
+    its plain version ``grad`` with the fault applied, and their largest
+    |fault - plain|: the d em rows one frame off (a ring off by one), and
+    ``faults``, {label: (module, attribute, edit)}: ``grad`` run with the
+    module's function replaced by ``edit(function)``. Each must read
+    beyond CTC_GRAD_TOL."""
+    got = {"d em rows one frame off": want.roll(1, 0)}
+    for label, (mod, attr, edit) in faults.items():
+        fn = getattr(mod, attr)
+        setattr(mod, attr, edit(fn))
+        try:
+            got[label] = grad(*args)
+        finally:
+            setattr(mod, attr, fn)
+    out = {}
+    for label, fault in got.items():
+        err = (fault - want).abs()
+        beyond = not bool((err <= CTC_GRAD_TOL +
+                           CTC_GRAD_TOL * want.abs()).all())
+        print(f"{name} planted fault, {label}: max|d| {err.max().item():.3e}"
+              f", beyond tol {CTC_GRAD_TOL}: {beyond}", flush=True)
+        check(beyond, f"{name}'s planted fault ({label}) reads within "
+                      f"CTC_GRAD_TOL")
+        out[label] = err.max().item()
+    return out
+
+
+def edge_states(plan, j):
+    """The states at register ``j`` of a sweep lane whose stencil
+    neighbour lies across an edge of the plan's layout: of the first lane
+    of each warp but the first (which the previous warp's last lane reads
+    through shared memory, behind the sweep's named barrier), and of lane
+    16 of each warp (which lane 15 reads by shuffle)."""
+    K, S = plan.per_lane, plan.states
+    warp = [32 * K * w + j for w in range(1, plan.sweep_warps)]
+    lane = [32 * K * w + 16 * K + j for w in range(plan.sweep_warps)]
+    return [s for s in warp if s < S], [s for s in lane if s < S]
+
+
+def ctc_faults(ctc, plan):
+    """K4's edge faults: the skips s-2 -> s into the label states at
+    register 1 of a lane (s-2 is the previous lane's last state) dropped,
+    at the warps' edges and at a lane edge inside each warp."""
+    def drop(states):
+        def edit(lattice):
+            def dropped(*a):
+                emit, skip, lens, final = lattice(*a)
+                skip = skip.clone()
+                skip[:, states] = -1e9
+                return emit, skip, lens, final
+            return dropped
+        return ctc, "_lattice", edit
+    warp, lane = edge_states(plan, 1)
+    check(bool(warp), f"K4's plan {plan} has no warp edge to fault")
+    return {f"skips into {warp} dropped (warp edges)": drop(warp),
+            f"skips into {lane} dropped (lane edges)": drop(lane)}
+
+
+def star_faults(star, plan):
+    """K8b's edge faults: the label edges s-4 -> s into the label states
+    at register 3 of a lane (s-4 is the previous lane's last state)
+    dropped, at the warps' edges and at a lane edge inside each warp."""
+    def drop(states):
+        def edit(lattice):
+            def dropped(*a):
+                emit, types, same, lens, ulens, ext = lattice(*a)
+                same = same.clone()
+                same[:, states] = True
+                return emit, types, same, lens, ulens, ext
+            return dropped
+        return star, "_lattice", edit
+    warp, lane = edge_states(plan, 3)
+    check(bool(warp), f"K8b's plan {plan} has no warp edge to fault")
+    return {f"label edges into {warp} dropped (warp edges)": drop(warp),
+            f"label edges into {lane} dropped (lane edges)": drop(lane)}
+
+
+def star_grad_without_first_back_edges(star, args):
+    """The plain star_grad with the back-edge term of every state at
+    register 0 of a lane (s = 0 mod 4, a blank: the edge is masked) left
+    out, as K8b leaves it out."""
+    lse = star._lse
+
+    def without(*xs):
+        if len(xs) == 6:                # star_grad's stencil: s-1 last
+            back = xs[5].clone()
+            back[:, 0::4] = star.FILL
+            xs = (*xs[:5], back)
+        return lse(*xs)
+    star._lse = without
+    try:
+        return star.star_grad(*args)
+    finally:
+        star._lse = lse
 
 
 def lstm_inputs(torch, dev, T, B, H, dtype):
@@ -1040,20 +1156,27 @@ def phase_ctc_bwd(torch, dev):
     loss = ctc_cuda.ctc_fwd_cuda(*args, history=hist)
     g = torch.rand(N, generator=torch.Generator().manual_seed(5)).to(dev) \
         + 0.5
+    n0 = ctc_cuda.bwd_launches
     got = ctc_cuda.ctc_bwd_cuda(*args, hist, loss, g)
     torch.cuda.synchronize()
+    plan = ctc_cuda.plan(S, C)
+    print(f"K4 route: the warp-specialized lattice, "
+          f"{ctc_cuda.bwd_launches - n0} launch, plan {plan}", flush=True)
+    check(ctc_cuda.bwd_launches == n0 + 1, "K4 did not launch once")
     want = ctc.ctc_grad(*args, hist, loss, g)
     err = (got - want).abs()
     ok = bool((err <= CTC_GRAD_TOL + CTC_GRAD_TOL * want.abs()).all())
     same = all(torch.equal(got, ctc_cuda.ctc_bwd_cuda(*args, hist, loss, g))
                for _ in range(2))
     print(f"K4 ctc_bwd N={N} T={T} C={C} S'={S}: max|ddlogp|="
-          f"{err.max().item():.3e} (tol rel/abs {CTC_GRAD_TOL}); empty, "
-          f"repeated and infeasible items included; the same bits on two "
-          f"more runs: {same}", flush=True)
+          f"{err.max().item():.3e} against ctc_grad, within tol rel/abs "
+          f"{CTC_GRAD_TOL}: {ok}; empty, repeated and infeasible items "
+          f"included; the same bits on two more runs: {same}", flush=True)
     check(bool(torch.isfinite(got).all()) and ok,
           "K4 disagrees with the plain ctc_grad")
     check(same, "K4 gives other bits on another run")
+    lattice_faults(torch, "K4", ctc.ctc_grad, (*args, hist, loss, g), want,
+                   ctc_faults(ctc, plan))
     ms = cuda_ms(lambda: ctc_cuda.ctc_bwd_cuda(*args, hist, loss, g))
     plain_ms = cuda_ms(lambda: ctc.ctc_grad(*args, hist, loss, g))
     lp = log_probs.clone().requires_grad_(True)
@@ -1062,9 +1185,11 @@ def phase_ctc_bwd(torch, dev):
     lib_ms = cuda_ms(lambda: torch.autograd.grad(ref, lp, g,
                                                  retain_graph=True))
     b_ms, b_by = k4_bound(input_lengths, N, T, S, U, C)
+    cyc, mhz = cycles_a_frame(ms, input_lengths, T)
     print(f"K4 ctc_bwd N={N} T={T}: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
           f"ms, F.ctc_loss backward {lib_ms:.3f} ms, bound {b_ms:.4f} ms "
-          f"({b_by})", flush=True)
+          f"({b_by}); {cyc:.0f} cycles a frame of the longest item at "
+          f"{mhz:.0f} MHz", flush=True)
     return dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 
@@ -1343,6 +1468,7 @@ def phase_train(torch, dev, tmp, card):
     # 3. one train step at batch 48 x 12 s
     system = make_system(torch, dev, "--arch", "lstm:512")
     _, batch = eval_batch(system)
+    reset_counts()
     check_against_plain(torch, system, batch, "train step")
 
     def step():             # ends in the host read of loss and norm
@@ -1507,20 +1633,36 @@ def phase_star(torch, dev):
     gvec = torch.rand(N, generator=torch.Generator().manual_seed(5)).to(dev) \
         + 0.5
     bargs = (*args, hist, loss, gvec, STAR_PENALTY)
+    n0 = star_cuda.bwd_launches
     got = star_cuda.star_bwd_cuda(*bargs)
     torch.cuda.synchronize()
+    plan = star_cuda.plan(S, C2)
+    print(f"K8b route: the warp-specialized lattice, "
+          f"{star_cuda.bwd_launches - n0} launch, plan {plan}", flush=True)
+    check(star_cuda.bwd_launches == n0 + 1, "K8b did not launch once")
     want = star.star_grad(*bargs)
     gerr = (got - want).abs()
     ok_g = bool((gerr <= CTC_GRAD_TOL + CTC_GRAD_TOL * want.abs()).all())
     same = all(torch.equal(got, star_cuda.star_bwd_cuda(*bargs))
                for _ in range(2))
-    print(f"K8b star_bwd: max|ddlp|={gerr.max().item():.3e} against star_grad "
-          f"(tol rel/abs {CTC_GRAD_TOL}); empty, repeated and infeasible "
-          f"items included; the same bits on two more runs: {same}",
-          flush=True)
+    print(f"K8b star_bwd: max|ddlp|={gerr.max().item():.3e} against star_grad"
+          f", within tol rel/abs {CTC_GRAD_TOL}: {ok_g}; empty, repeated and "
+          f"infeasible items included; the same bits on two more runs: "
+          f"{same}", flush=True)
     check(bool(torch.isfinite(got).all()) and ok_g,
           "K8b disagrees with the plain star_grad")
     check(same, "K8b gives other bits on another run")
+    lattice_faults(torch, "K8b", star.star_grad, bargs, want,
+                   star_faults(star, plan))
+    # on the CPU, where the plain version's scatter sums in one order
+    host = tuple(a.cpu() if torch.is_tensor(a) else a for a in bargs)
+    exact = torch.equal(star_grad_without_first_back_edges(star, host),
+                        star.star_grad(*host))
+    print(f"K8b leaves out the masked back edge into a lane's first state: "
+          f"star_grad without it gives the same bits (on the CPU): {exact}",
+          flush=True)
+    check(exact, "star_grad reads the masked back edge into a lane's first "
+                 "state, which K8b leaves out")
 
     cells = lattice_cells(il, S, T)
     small = 4 * (N * (2 * U + 1) + 2 * N + N)      # targets, lengths, loss
@@ -1542,12 +1684,80 @@ def phase_star(torch, dev):
     b_plain = cuda_ms(lambda: star.star_grad(*bargs))
     b_ms, b_by = bound(4 * (2 * cells + T * N * C2 + N) + small, 0,
                        K8B_ELEM * cells)
+    cyc, mhz = cycles_a_frame(ms, il, T)
     print(f"K8b star_bwd: kernel {ms:.3f} ms, plain {b_plain:.3f} ms, no "
-          f"library call, bound {b_ms:.4f} ms ({b_by})", flush=True)
+          f"library call, bound {b_ms:.4f} ms ({b_by}); {cyc:.0f} cycles a "
+          f"frame of the longest item at {mhz:.0f} MHz", flush=True)
     reports["bwd"] = dict(max_abs_err=gerr.max().item(), ms=ms,
                           plain_ms=b_plain, bound_ms=b_ms, bound_by=b_by,
                           library_ms=None)
     return reports
+
+
+def long_lattice_inputs(torch, dev, T, N, V, U, seed):
+    """Raw log-probs (T, N, V) and targets for a long lattice: item 0
+    uses every frame and label, 1 has an empty target, the rest random
+    lengths (frames past len)."""
+    g = torch.Generator().manual_seed(seed)
+    log_probs = torch.log_softmax(torch.randn((T, N, V), generator=g) * 2,
+                                  -1)
+    targets = torch.randint(1, V, (N, U), generator=g)
+    input_lengths = torch.randint(T // 2, T + 1, (N,), generator=g)
+    target_lengths = torch.randint(1, U + 1, (N,), generator=g)
+    input_lengths[0], target_lengths[0] = T, U
+    target_lengths[1] = 0
+    return [t.to(dev) for t in (log_probs, targets, input_lengths,
+                                target_lengths)]
+
+
+def phase_long_lattice(torch, dev):
+    """R3: K3 and K4 at S' = 2049 (U = 1024), K8a and K8b at S = 2051
+    (U = 512), past the old 1024-state limit, against their plain
+    versions (ctc_forward_history / ctc_grad, star_forward_history /
+    star_grad) at a small batch: -> the largest |d| of each."""
+    from haloop_tpu_torch.ops import ctc, ctc_cuda, star, star_cuda
+    out = {}
+    args = long_lattice_inputs(torch, dev, 2100, 3, 40, 1024, 11)
+    T, N = 2100, 3
+    S = 2 * 1024 + 1
+    hist = torch.empty((N, T, S), device=dev)
+    loss = ctc_cuda.ctc_fwd_cuda(*args, history=hist)
+    loss_e, hist_e = ctc.ctc_forward_history(*args)
+    g = torch.rand(N, generator=torch.Generator().manual_seed(6)).to(dev) \
+        + 0.5
+    got = ctc_cuda.ctc_bwd_cuda(*args, hist, loss, g)
+    want = ctc.ctc_grad(*args, hist, loss, g)
+    out["K3 rel"] = ((loss - loss_e).abs() / loss_e.abs()).max().item()
+    out["K4"] = (got - want).abs().max().item()
+    check(out["K3 rel"] <= CTC_REL_TOL and
+          bool(torch.allclose(hist, hist_e, rtol=1e-5, atol=1e-3)),
+          "K3 at S' = 2049 disagrees with ctc_forward_history")
+    check(bool(((got - want).abs() <= CTC_GRAD_TOL +
+                CTC_GRAD_TOL * want.abs()).all()),
+          "K4 at S' = 2049 disagrees with ctc_grad")
+
+    raw, targets, il, tl = long_lattice_inputs(torch, dev, 1100, 3, 20, 512,
+                                               12)
+    star_lp, star_targets = star.intersperse_stars(raw, targets)
+    sargs = (star_lp, star_targets, il, tl)
+    T, S = 1100, 4 * 512 + 3
+    hist = torch.empty((N, T, S), device=dev)
+    loss = star_cuda.star_fwd_cuda(*sargs, STAR_PENALTY, history=hist)
+    loss_e, hist_e = star.star_forward_history(*sargs, STAR_PENALTY)
+    bargs = (*sargs, hist, loss, g, STAR_PENALTY)
+    got = star_cuda.star_bwd_cuda(*bargs)
+    want = star.star_grad(*bargs)
+    ok_l, out["K8a"] = close(loss, loss_e, STAR_TOL)
+    out["K8b"] = (got - want).abs().max().item()
+    check(ok_l and bool(torch.allclose(hist, hist_e, rtol=1e-5, atol=1e-3)),
+          "K8a at S = 2051 disagrees with star_forward_history")
+    check(bool(((got - want).abs() <= CTC_GRAD_TOL +
+                CTC_GRAD_TOL * want.abs()).all()),
+          "K8b at S = 2051 disagrees with star_grad")
+    print(f"long lattices (R3): K3/K4 at N=3 T=2100 S'=2049 C=40, K8a/K8b at "
+          f"N=3 T=1100 S=2051 2V=40: max|d| {out} (K3 rel {CTC_REL_TOL}, "
+          f"K8a {STAR_TOL}, K4/K8b rel/abs {CTC_GRAD_TOL})", flush=True)
+    return out
 
 
 def host_ms(torch, fn, reps=5, warm=True):
@@ -3744,6 +3954,7 @@ def main():
         k4 = timed(phase_ctc_bwd, torch, dev)
         k9 = timed(phase_joint, torch, dev)
         k8 = timed(phase_star, torch, dev)
+        timed(phase_long_lattice, torch, dev)
         k5, k7 = timed(phase_flash, torch, dev)
         k10 = timed(phase_fused_ce, torch, dev)
         k11 = timed(phase_decode, torch, dev)

@@ -24,16 +24,18 @@
 // at t = input_length - 1 (1e9 for an item with no frames).
 //
 // What bounds it on the H100: the frames are sequential and each is a
-// 6-point stencil over at most ~1000 lanes, so the lattice is latency
+// 6-point stencil over at most 4096 lanes, so the lattice is latency
 // bound (one emission load and one block barrier a frame), not by bytes
 // or operations: at N=48, T'=385, S=387 it reads ~7 MB of emissions.
 //
-// This design: K3's (ctc_fwd.cu). One block per utterance and one thread
-// per padded lane; alpha is double-buffered in shared memory; each state's
-// emission is gathered inside the kernel straight from the (T, N, 2V)
-// star log-probs, one frame ahead of its use, so the (N, T, S) tensor the
-// TPU path builds with a one-hot matmul never exists. The alpha history
-// (N, T, S), which the backward needs, is written only when asked for.
+// This design: K3's (ctc_fwd.cu). One block per utterance, each thread
+// the padded lanes tid, tid + blockDim, ... (PER of them: 1, 2 or 4; at
+// most 1024 threads, 4096 lanes); alpha is double-buffered in shared
+// memory; each state's emission is gathered inside the kernel straight
+// from the (T, N, 2V) star log-probs, one frame ahead of its use, so the
+// (N, T, S) tensor the TPU path builds with a one-hot matmul never
+// exists. The alpha history (N, T, S), which the backward needs, is
+// written only when asked for.
 
 #include <cuda_runtime.h>
 
@@ -42,7 +44,8 @@ namespace {
 constexpr float NEG = -1e9f;
 constexpr float SENTINEL = -7007.7007f;
 constexpr int PAD = 4;
-constexpr int MAX_LANES = 1024;
+constexpr int MAX_LANES = 4096;
+constexpr int MAX_PER = 4;          // lanes a thread, at 1024 threads
 
 __device__ __forceinline__ float lse2(float a, float b) {
   const float m = fmaxf(fmaxf(a, b), NEG);
@@ -54,6 +57,7 @@ __device__ __forceinline__ float lse3(float a, float b, float c) {
   return m + logf(expf(a - m) + expf(b - m) + expf(c - m));
 }
 
+template <int PER>
 __global__ void star_fwd(const float* __restrict__ star_lp,      // (T, N, C2)
                          const int* __restrict__ star_targets,   // (N, 2U+1)
                          const int* __restrict__ input_lengths,  // (N,)
@@ -61,59 +65,80 @@ __global__ void star_fwd(const float* __restrict__ star_lp,      // (T, N, C2)
                          float* __restrict__ loss,               // (N,)
                          float* __restrict__ hist,  // (N, T, S) or null
                          float penalty, int T, int N, int C2, int U) {
-  extern __shared__ float alpha[];   // 2 * blockDim.x
+  extern __shared__ float alpha[];   // 2 * PER * blockDim.x
   const int n = blockIdx.x;
   const int S = 4 * U + 3;
   const int lanes = PAD + S + 1;
-  const int L = threadIdx.x;
-  const int s = L - PAD;
-  const bool real = s >= 0 && s < S;
+  const int nt = blockDim.x;
   const int* st = star_targets + (size_t)n * (2 * U + 1);
 
-  // this state's type, class (clamped into the vocabulary, like a gather)
-  // and whether its label repeats the one at s-4
-  const bool is_blank = real && s % 2 == 0;
-  const bool is_star = real && s % 4 == 1;
-  int label = 0;
-  bool same = false;
-  if (real && !is_blank) {
-    const int raw = st[(s - 1) / 2];
-    label = min(max(raw, 0), C2 - 1);
-    same = s % 4 == 3 && s >= 4 && raw == st[(s - 5) / 2];
+  // each lane's state type, class (clamped into the vocabulary, like a
+  // gather) and whether its label repeats the one at s-4
+  unsigned blank = 0, star = 0, same = 0;   // bit k: lane tid + k nt
+  const float* em[PER];
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int s = threadIdx.x + k * nt - PAD;
+    const bool real = s >= 0 && s < S;
+    int label = 0;
+    if (real && s % 2 == 0) blank |= 1u << k;
+    if (real && s % 4 == 1) star |= 1u << k;
+    if (real && s % 2 != 0) {
+      const int raw = st[(s - 1) / 2];
+      label = min(max(raw, 0), C2 - 1);
+      if (s % 4 == 3 && s >= 4 && raw == st[(s - 5) / 2]) same |= 1u << k;
+    }
+    em[k] = star_lp + (size_t)n * C2 + label;
   }
 
   const int len = max(min(input_lengths[n], T), 0);
   const int ulen = min(max(target_lengths[n], 0), U);
   const int last = PAD + 4 * ulen + 2;       // lane of the final blank
-  const float* em = star_lp + (size_t)n * C2 + label;
   const size_t t_stride = (size_t)N * C2;
   float* cur = alpha;
-  float* nxt = alpha + blockDim.x;
-  const float edge = L == PAD + S ? SENTINEL : NEG;   // non-state lanes
+  float* nxt = alpha + PER * nt;
+  float* hist_n = hist ? hist + (size_t)n * T * S : nullptr;
 
-  if (L < lanes) cur[L] = L < PAD ? 0.f : edge;
-  float e_next = (real && len > 0) ? em[0] : 0.f;
+  float e_next[PER];
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int L = threadIdx.x + k * nt, s = L - PAD;
+    const bool real = s >= 0 && s < S;
+    if (L < lanes) cur[L] = L < PAD ? 0.f : (L == PAD + S ? SENTINEL : NEG);
+    e_next[k] = (real && len > 0) ? em[k][0] : 0.f;
+  }
   float final_score = NEG;
   __syncthreads();
   for (int t = 0; t < len; ++t) {
-    const float e = e_next;
-    if (real && t + 1 < len) e_next = em[(t + 1) * t_stride];
-    if (L < lanes) {
-      float v = edge;
+    // the next frame's emissions first, a frame ahead of their use
+    float e[PER];
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int s = threadIdx.x + k * nt - PAD;
+      e[k] = e_next[k];
+      if (s >= 0 && s < S && t + 1 < len)
+        e_next[k] = em[k][(t + 1) * t_stride];
+    }
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int L = threadIdx.x + k * nt, s = L - PAD;
+      if (L >= lanes) continue;
+      const bool real = s >= 0 && s < S;
+      float v = L == PAD + S ? SENTINEL : NEG;   // non-state lanes
       if (real) {
         const float from_prev = cur[L - 1], from_self = cur[L];
         const float pos = lse2(from_prev, from_self);
         float trans;
-        if (is_blank) {
+        if ((blank >> k) & 1) {
           trans = pos;
-        } else if (is_star) {
+        } else if ((star >> k) & 1) {
           trans = lse2(pos, cur[L + 1]) + penalty;
         } else {
           const float reach = lse3(cur[L - 3], from_prev, cur[L - 2]);
-          trans = same ? reach : lse2(reach, cur[L - 4]);
+          trans = (same >> k) & 1 ? reach : lse2(reach, cur[L - 4]);
         }
-        v = trans + e;
-        if (hist) hist[((size_t)n * T + t) * S + s] = v;
+        v = trans + e[k];
+        if (hist) hist_n[(size_t)t * S + s] = v;
       }
       nxt[L] = v;
     }
@@ -123,11 +148,16 @@ __global__ void star_fwd(const float* __restrict__ star_lp,      // (T, N, C2)
     nxt = tmp;
   }
   // frames past the input length keep the frozen lattice
-  if (hist && real)
-    for (int t = len; t < T; ++t)
-      hist[((size_t)n * T + t) * S + s] = cur[L];
+  if (hist) {
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int L = threadIdx.x + k * nt, s = L - PAD;
+      if (s >= 0 && s < S)
+        for (int t = len; t < T; ++t) hist_n[(size_t)t * S + s] = cur[L];
+    }
+  }
 
-  if (L == 0) {
+  if (threadIdx.x == 0) {
     if (len > 0) {
       const float a = cur[last - 3], b = cur[last - 2], c = cur[last - 1],
                   d = cur[last];
@@ -144,7 +174,7 @@ __global__ void star_fwd(const float* __restrict__ star_lp,      // (T, N, C2)
 // star_lp (T, N, C2) fp32, the star-vocabulary log-probs; star_targets
 // (N, 2U+1), input_lengths and target_lengths (N,) int32; loss (N,) fp32;
 // hist (N, T, 4U+3) fp32 or null. Returns the launch's cudaError_t
-// (cudaErrorInvalidValue beyond 1024 lanes).
+// (cudaErrorInvalidValue beyond 4096 lanes).
 extern "C" int hl_star_fwd(const void* star_lp, const void* star_targets,
                            const void* input_lengths,
                            const void* target_lengths, void* loss, void* hist,
@@ -153,13 +183,23 @@ extern "C" int hl_star_fwd(const void* star_lp, const void* star_targets,
   const int lanes = PAD + 4 * U + 3 + 1;
   if (lanes > MAX_LANES || N <= 0 || C2 <= 0 || U < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = (lanes + 31) / 32 * 32;
-  star_fwd<<<N, threads, 2 * threads * sizeof(float),
-             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(star_lp),
-      static_cast<const int*>(star_targets),
-      static_cast<const int*>(input_lengths),
-      static_cast<const int*>(target_lengths), static_cast<float*>(loss),
-      static_cast<float*>(hist), penalty, T, N, C2, U);
+  const int threads = min((lanes + 31) / 32 * 32, MAX_LANES / MAX_PER);
+  const int per = (lanes + threads - 1) / threads;   // 1, 2, 3 or 4
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto lp = static_cast<const float*>(star_lp);
+  const auto tg = static_cast<const int*>(star_targets);
+  const auto il = static_cast<const int*>(input_lengths);
+  const auto tl = static_cast<const int*>(target_lengths);
+  const auto ls = static_cast<float*>(loss);
+  const auto h = static_cast<float*>(hist);
+  if (per == 1)
+    star_fwd<1><<<N, threads, 2 * threads * sizeof(float), st>>>(
+        lp, tg, il, tl, ls, h, penalty, T, N, C2, U);
+  else if (per == 2)
+    star_fwd<2><<<N, threads, 4 * threads * sizeof(float), st>>>(
+        lp, tg, il, tl, ls, h, penalty, T, N, C2, U);
+  else
+    star_fwd<4><<<N, threads, 8 * threads * sizeof(float), st>>>(
+        lp, tg, il, tl, ls, h, penalty, T, N, C2, U);
   return static_cast<int>(cudaGetLastError());
 }

@@ -46,8 +46,9 @@ _SIGNATURES = {
     # T, N, C, U, stream
     "hl_ctc_fwd": [_P] * 6 + [_I] * 4 + [_P],
     # log_probs, targets, input_lengths, target_lengths, hist, loss, g,
-    # dlogp, T, N, C, U, stream
-    "hl_ctc_bwd": [_P] * 8 + [_I] * 4 + [_P],
+    # dlogp, T, N, C, U, the plan (K, sweep warps, scatter warps, frames,
+    # depth, dense, smem), stream
+    "hl_ctc_bwd": [_P] * 8 + [_I] * 11 + [_P],
     # f, g, lse, N, T, U1, V, rows, chunk, stream
     "hl_joint_lse": [_P] * 3 + [_I] * 6 + [_P],
     # f, g, lse, dlse, df, dg, partial, N, T, U1, V, stream
@@ -56,8 +57,9 @@ _SIGNATURES = {
     # penalty, T, N, C2, U, stream
     "hl_star_fwd": [_P] * 6 + [_F] + [_I] * 4 + [_P],
     # star_lp, star_targets, input_lengths, target_lengths, hist, loss, g,
-    # dlp, penalty, T, N, C2, U, stream
-    "hl_star_bwd": [_P] * 8 + [_F] + [_I] * 4 + [_P],
+    # dlp, penalty, T, N, C2, U, the plan (K, sweep warps, scatter warps,
+    # frames, depth, dense, smem), stream
+    "hl_star_bwd": [_P] * 8 + [_F] + [_I] * 11 + [_P],
     # q, k, v, kv_lengths, seg, o, lse, dims (host int[17]), causal, t0,
     # bf16, stream
     "hl_flash_fwd": [_P] * 8 + [_I] * 3 + [_P],

@@ -9,18 +9,26 @@ log-softmax emissions -> (N,) positive NLL, with its analytic backward.
   * otherwise (serving) K3 alone.
 A CPU tensor takes the plain versions in ``ops.ctc`` (through the same
 Function under autograd); a CUDA tensor launches the kernels or raises.
+K4 runs the warp-specialized lattice backward of ``csrc/lattice_bwd.cuh``
+on the launch ``plan`` gives.
 """
 
 import torch
 
 from haloop_tpu_torch import kernels
 from haloop_tpu_torch.ops import ctc as _ctc
+from haloop_tpu_torch.ops import lattice_cuda
 
-MAX_STATES = 1024     # one thread per lattice state, one block per item
-SMEM_LIMIT = 232448   # bytes of shared memory a block may use (H100)
+MAX_STATES = lattice_cuda.MAX_STATES   # 2U+1: K3's 1024 threads x 4, K4's
 launches = 0          # K3 calls without the alpha history (serving)
 history_launches = 0  # K3 calls that write the history (under autograd)
 bwd_launches = 0      # K4 calls
+
+
+def plan(S, C):
+    """K4's launch for S = 2U+1 states and C classes
+    (``lattice_cuda.plan``; K >= 2, the stencil's reach)."""
+    return lattice_cuda.plan(S, C, 2, "ctc_grad")
 
 
 def ctc_loss(log_probs, targets, input_lengths, target_lengths,
@@ -141,10 +149,7 @@ def ctc_bwd_cuda(log_probs, targets, input_lengths, target_lengths, hist,
     S = 2 * U + 1
     log_probs, targets, input_lengths, target_lengths = _lattice_args(
         "ctc_grad", log_probs, targets, input_lengths, target_lengths)
-    threads = (S + 31) // 32 * 32
-    if (2 * threads + C) * 4 > SMEM_LIMIT:
-        raise ValueError(f"ctc_grad: a {C}-class row does not fit in "
-                         "shared memory")
+    p = plan(S, C)
     if hist.shape != (N, T, S) or loss.shape != (N,) or g.shape != (N,):
         raise ValueError(f"ctc_grad: hist, loss and g must be {(N, T, S)}, "
                          f"{(N,)} and {(N,)}")
@@ -160,7 +165,9 @@ def ctc_bwd_cuda(log_probs, targets, input_lengths, target_lengths, hist,
     err = kernels.library().hl_ctc_bwd(
         log_probs.data_ptr(), targets.data_ptr(), input_lengths.data_ptr(),
         target_lengths.data_ptr(), hist.data_ptr(), loss.data_ptr(),
-        g.data_ptr(), dlogp.data_ptr(), T, N, C, U,
+        g.data_ptr(), dlogp.data_ptr(), T, N, C, U, p.per_lane,
+        p.sweep_warps, p.scatter_warps, p.frames, p.depth,
+        int(p.dense), p.smem,
         kernels.stream_of(log_probs))
     kernels.check(err, "hl_ctc_bwd")
     bwd_launches += 1

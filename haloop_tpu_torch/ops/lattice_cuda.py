@@ -1,0 +1,127 @@
+"""The launch plan of the lattice backward kernels K4 (``csrc/ctc_bwd.cu``)
+and K8b (``csrc/star_bwd.cu``), shared by ``ops/ctc_cuda.plan`` and
+``ops/star_cuda.plan``; pure Python, so the CPU tests hold it.
+
+One block an utterance (``csrc/lattice_bwd.cuh``): ``sweep_warps`` warps
+(at most ``SWEEP_WARPS``) run the reverse beta sweep, lane l owning the
+contiguous states l K .. l K + K - 1 in registers (K = ``per_lane``);
+``scatter_warps`` warps bring each frame's alpha history and gathered emissions into a
+shared-memory ring ahead of the sweep, and turn its betas into d em and
+the gradient row, with fixed-order class sums, behind it. The ring has
+``depth`` slots of ``frames`` frames (em, alpha and beta rows of K x 32
+x ``sweep_warps`` floats, state s = l K + j at j * LANES + l); the sweep
+meets its mbarriers once a slot. A ``dense`` plan stages a slot's
+gradient rows in shared memory and copies them out whole; where C is too
+wide for that, the class sums go straight to the gradient and the empty
+columns get zeros. ``smem`` is the block's dynamic shared memory, byte
+for byte the layout of ``lattice_bwd.cuh`` (``hl::lat::layout``); the
+launcher refuses a plan whose size differs.
+"""
+
+import functools
+from typing import NamedTuple
+
+MAX_STATES = 4096       # 32 states a lane over a warpgroup's 128 lanes
+SMEM_LIMIT = 232448     # bytes of shared memory a block may use (H100)
+SWEEP_WARPS = 4         # a warpgroup: one warp on each SM sub-partition
+PER_LANE = (2, 4, 8, 16, 32)   # the kernels' instantiations of K
+LONG = 4                # a class of more states is summed by a warp
+# (frames a slot, slots), the first that fits: up to 16 frames in flight;
+# the scatter warps' two groups take alternate slots (even depths)
+RINGS = ((4, 4), (4, 2), (2, 2), (1, 2))
+GROUPS = 2
+MAX_WARPS = 12          # sweep + scatter warps of a block
+
+
+def max_warps(K):
+    """The kernels' launch bound: 12 warps, 8 from 16 states a lane (which
+    want the registers)."""
+    return 8 if K >= 16 else MAX_WARPS
+
+
+class Plan(NamedTuple):
+    states: int         # S
+    classes: int        # C (CTC) or 2V (Star-CTC)
+    per_lane: int       # K: states a sweep lane owns
+    sweep_warps: int
+    scatter_warps: int
+    frames: int         # frames a ring slot
+    depth: int          # ring slots
+    dense: bool         # a slot's gradient rows staged in shared memory
+    smem: int           # bytes of dynamic shared memory
+    threads: int        # 32 x (sweep_warps + scatter_warps)
+
+    @property
+    def lanes(self):
+        return 32 * self.sweep_warps
+
+    @property
+    def slot(self):
+        return self.per_lane * self.lanes
+
+
+def owner(p, s):
+    """(sweep lane, register index) of state ``s``."""
+    return divmod(s, p.per_lane)
+
+
+def address(p, s):
+    """State ``s``'s place in a ring slot (lattice_bwd.cuh addr_of)."""
+    lane, j = owner(p, s)
+    return j * p.lanes + lane
+
+
+def _align16(x):
+    return (x + 15) // 16 * 16
+
+
+def smem_bytes(S, C, K, sweep_warps, frames, depth, dense):
+    """hl::lat::layout(...).bytes: mbarriers, edge exchange, the long and
+    the short classes, class starts, order, each state's class, a slot's
+    gradient rows (dense plans), then the ring."""
+    slot = K * 32 * sweep_warps
+    return (_align16(3 * depth * 8) + _align16(2 * sweep_warps * 8 * 4) +
+            _align16((S // (LONG + 1) + 2) * 4) + _align16((S + 1) * 4) +
+            _align16((C + 1) * 4) + _align16(S * 4) + _align16(S * 4) +
+            (_align16(GROUPS * 2 * frames * C * 4) if dense else 0) +
+            depth * 3 * frames * slot * 4)
+
+
+def scatter_warps(C, K):
+    """8 scatter warps where a sweep lane holds 2 states, 4 where it holds
+    more or C <= 256 (one-call timings on the H100: K4 at lstm:512's
+    lattice 0.144 ms with 8, 0.157 with 4; K8b 0.252 with 8, 0.246 with
+    4: the heavier sweep wants its sub-partitions)."""
+    return 4 if C <= 256 or K >= 4 else 8
+
+
+@functools.lru_cache(maxsize=256)
+def plan(S, C, min_per_lane, name):
+    """The launch of a backward lattice of ``S`` states and ``C`` classes:
+    the least K of ``PER_LANE`` (at least ``min_per_lane``) with which at
+    most ``SWEEP_WARPS`` warps hold the states, only the warps that own
+    states, ``scatter_warps(C, K)`` scatter warps, and the first ring of
+    ``RINGS`` that fits in ``SMEM_LIMIT`` with the rows staged, else
+    without. Raises ValueError where no such plan exists; ``name`` is the
+    caller's, for the message."""
+    if S < 1 or C < 1:
+        raise ValueError(f"{name}: {S} states, {C} classes")
+    cap = min(MAX_STATES, 32 * SWEEP_WARPS * PER_LANE[-1])
+    if S > cap:
+        raise ValueError(f"{name}: {S} lattice states exceed the kernel's "
+                         f"{cap}")
+    K = next(k for k in PER_LANE
+             if k >= min_per_lane and 32 * SWEEP_WARPS * k >= S)
+    warps = -(-(-(-S // K)) // 32)
+    scatter = scatter_warps(C, K)
+    if scatter % GROUPS or warps + scatter > max_warps(K):
+        raise ValueError(f"{name}: {warps} + {scatter} warps exceed "
+                         f"{max_warps(K)}")
+    for dense in (True, False):
+        for frames, depth in RINGS:
+            smem = smem_bytes(S, C, K, warps, frames, depth, dense)
+            if smem <= SMEM_LIMIT:
+                return Plan(S, C, K, warps, scatter, frames, depth, dense,
+                            smem, 32 * (warps + scatter))
+    raise ValueError(f"{name}: a {C}-class row with {S} states does not "
+                     f"fit in shared memory ({SMEM_LIMIT} bytes)")

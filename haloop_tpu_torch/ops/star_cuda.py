@@ -12,18 +12,35 @@ analytic backward. ``star_ctc_loss`` picks the path:
   * otherwise (serving) K8a alone.
 A CPU tensor takes the plain versions in ``ops.star`` (through the same
 Function under autograd); a CUDA tensor launches the kernels or raises.
+K8b runs the warp-specialized lattice backward of
+``csrc/lattice_bwd.cuh`` on the launch ``plan`` gives.
 """
 
 import torch
 
 from haloop_tpu_torch import kernels
+from haloop_tpu_torch.ops import lattice_cuda
 from haloop_tpu_torch.ops import star as _star
 
-MAX_LANES = 1024      # one thread per padded lane (4U+3 states + 5)
-SMEM_LIMIT = 232448   # bytes of shared memory a block may use (H100)
+MAX_LANES = 4096      # K8a: padded lanes (PAD + 4U+3 states + 1), 1024 x 4
 launches = 0          # K8a calls without the alpha history (serving)
 history_launches = 0  # K8a calls that write the history (under autograd)
 bwd_launches = 0      # K8b calls
+
+
+def plan(S, C2):
+    """K8b's launch for S = 4U+3 states and C2 = 2V classes
+    (``lattice_cuda.plan``; K a multiple of 4, so that a state's type is
+    its register's index mod 4), refused past K8a's lanes, whose history
+    it reads."""
+    _check_states("star_grad", S)
+    return lattice_cuda.plan(S, C2, 4, "star_grad")
+
+
+def _check_states(name, S):
+    if _star.PAD + S + 1 > MAX_LANES:
+        raise ValueError(f"{name}: {S} lattice states exceed the kernel's "
+                         f"{MAX_LANES - _star.PAD - 1}")
 
 
 def star_ctc_loss(log_probs, targets, input_lengths, target_lengths,
@@ -84,9 +101,7 @@ def _lattice_args(name, star_lp, star_targets, input_lengths,
     if star_targets.shape[1] % 2 != 1:
         raise ValueError(f"{name}: star targets must be (N, 2U+1), got "
                          f"{tuple(star_targets.shape)}")
-    if _star.PAD + S + 1 > MAX_LANES:
-        raise ValueError(f"{name}: {S} lattice states exceed the kernel's "
-                         f"{MAX_LANES - _star.PAD - 1}")
+    _check_states(name, S)
     if star_lp.dtype != torch.float32:
         raise TypeError(f"{name}: star log-probs must be float32, got "
                         f"{star_lp.dtype}")
@@ -147,10 +162,7 @@ def star_bwd_cuda(star_lp, star_targets, input_lengths, target_lengths,
     S = 4 * U + 3
     star_lp, star_targets, input_lengths, target_lengths = _lattice_args(
         "star_grad", star_lp, star_targets, input_lengths, target_lengths)
-    threads = (S + 31) // 32 * 32
-    if (2 * threads + C2) * 4 > SMEM_LIMIT:
-        raise ValueError(f"star_grad: a {C2}-class row does not fit in "
-                         "shared memory")
+    p = plan(S, C2)
     if hist.shape != (N, T, S) or loss.shape != (N,) or g.shape != (N,):
         raise ValueError(f"star_grad: hist, loss and g must be {(N, T, S)}, "
                          f"{(N,)} and {(N,)}")
@@ -166,7 +178,9 @@ def star_bwd_cuda(star_lp, star_targets, input_lengths, target_lengths,
         star_lp.data_ptr(), star_targets.data_ptr(),
         input_lengths.data_ptr(), target_lengths.data_ptr(), hist.data_ptr(),
         loss.data_ptr(), g.data_ptr(), dlp.data_ptr(), float(penalty), T, N,
-        C2, U, kernels.stream_of(star_lp))
+        C2, U, p.per_lane, p.sweep_warps, p.scatter_warps, p.frames, p.depth,
+        int(p.dense), p.smem,
+        kernels.stream_of(star_lp))
     kernels.check(err, "hl_star_bwd")
     bwd_launches += 1
     return dlp

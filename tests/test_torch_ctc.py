@@ -153,3 +153,25 @@ def test_ctc_analytic_grad_matches_autograd():
     frames = case[2]
     np.testing.assert_allclose(got.sum(axis=2).sum(axis=0), -g * frames,
                                rtol=1e-4)
+
+
+def test_ctc_grads_match_pallas_kernel_at_long_targets():
+    """R3: a lattice of 1201 states (U = 600), past the card kernels' old
+    1024, through the CTCLoss Function on CPU tensors against jax.grad of
+    ctc_loss_pallas in interpret mode, T = 700, C = 40: loss rel 1e-5,
+    grads rel/abs 1e-3 (the JAX package's bound for its kernel's grads;
+    alphas and betas reach ~3,000 here, where one fp32 step is 2.4e-4)."""
+    rng = np.random.default_rng(7)
+    T, C, U = 700, 40, 600
+    log_probs = _log_softmax(rng.normal(size=(T, 2, C)) * 2)
+    targets = rng.integers(1, C, size=(2, U))
+    case = (log_probs, targets, np.array([700, 650], np.int32),
+            np.array([600, 300], np.int32))
+    g = np.array([1.0, 0.5], np.float32)
+    loss, got = _port_ctc_grad(case, g)
+    jcase = [jnp.asarray(a) for a in case]
+    jloss = np.asarray(ctc_loss_pallas(*jcase, True))
+    want = np.asarray(jax.grad(lambda lp: jnp.sum(
+        ctc_loss_pallas(lp, *jcase[1:], True) * jnp.asarray(g)))(jcase[0]))
+    np.testing.assert_allclose(loss, jloss, rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)

@@ -641,11 +641,96 @@ def test_backward_kernels_reject_what_they_do_not_take(cuda):
 
 @pytest.mark.cuda
 def test_ctc_kernel_rejects_too_many_states(cuda):
+    """1025 states (U=512), past the old one-thread-a-state limit, now
+    run; 4097 (U=2048), one past K3's and K4's 4096, raise."""
     log_probs = torch.log_softmax(torch.randn((8, 1, 5), device=cuda), -1)
     targets = torch.ones((1, 512), dtype=torch.long, device=cuda)
     args = (log_probs, targets, torch.tensor([8]), torch.tensor([512]))
-    with pytest.raises(ValueError, match="1025 lattice states"):
+    assert ctc_cuda.ctc_loss(*args).item() > 1e8       # infeasible: 1e9
+    lp = log_probs.clone().requires_grad_(True)
+    ctc_cuda.ctc_loss(lp, *args[1:]).sum().backward()
+    assert torch.isfinite(lp.grad).all()
+    targets = torch.ones((1, 2048), dtype=torch.long, device=cuda)
+    args = (log_probs, targets, torch.tensor([8]), torch.tensor([2048]))
+    with pytest.raises(ValueError, match="4097 lattice states"):
         ctc_cuda.ctc_loss(*args)
+    hist = torch.empty((1, 8, 4097), device=cuda)
+    with pytest.raises(ValueError, match="4097 lattice states"):
+        ctc_cuda.ctc_bwd_cuda(*args, hist, torch.ones(1, device=cuda),
+                              torch.ones(1, device=cuda))
+
+
+@pytest.mark.cuda
+def test_star_kernel_rejects_too_many_states(cuda):
+    """Star-CTC takes U <= 1022 (PAD + 4U+3 + 1 <= 4096 lanes of K8a; K8b
+    the same states); U = 1023 raises in both kernels."""
+    log_probs = torch.log_softmax(torch.randn((8, 1, 5), device=cuda), -1)
+    for U, ok in ((1022, True), (1023, False)):
+        targets = torch.ones((1, U), dtype=torch.long, device=cuda)
+        star_lp, star_targets = star.intersperse_stars(log_probs, targets)
+        args = (star_lp, star_targets, torch.tensor([8]), torch.tensor([U]))
+        if ok:
+            assert star_cuda.star_fwd_cuda(*args, -0.5).item() > 1e8
+            continue
+        with pytest.raises(ValueError, match="4095 lattice states"):
+            star_cuda.star_fwd_cuda(*args, -0.5)
+        hist = torch.empty((1, 8, 4 * U + 3), device=cuda)
+        with pytest.raises(ValueError, match="4095 lattice states"):
+            star_cuda.star_bwd_cuda(*args, hist, torch.ones(1, device=cuda),
+                                    torch.ones(1, device=cuda), -0.5)
+
+
+def _edge_items(input_lengths, target_lengths, targets, T, U):
+    """The lattices' special items in place: 0 an empty target, 1 one
+    label repeated U times, 2 infeasible (5 frames), 3 no frames, 4 every
+    frame and every label; the rest end before T (frames past len)."""
+    target_lengths[0] = 0
+    targets[1] = 5
+    target_lengths[1] = U
+    input_lengths[2], target_lengths[2] = 5, U
+    input_lengths[3] = 0
+    input_lengths[4], target_lengths[4] = T, U
+
+
+# (T, N, C, U): S = 2U+1 at K4's lane (K = 2 states) and warp (64, 128
+# states) edges, lstm:512's 48 x 385 frames (U = 96), and long targets:
+# S = 1025 (K = 16 over 3 warps) and 4095 (K = 32 over a warpgroup)
+CTC_EDGE_SHAPES = [(70, 6, 20, 15), (70, 6, 20, 16), (140, 6, 20, 31),
+                   (140, 6, 20, 32), (300, 6, 20, 63), (300, 6, 20, 64),
+                   (385, 48, 512, 96), (1100, 5, 40, 512),
+                   (4200, 5, 40, 2047)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,N,C,U", CTC_EDGE_SHAPES)
+def test_ctc_lattice_kernels_at_layout_edges(cuda, T, N, C, U):
+    """K3 against ctc_forward_history (loss rel 1e-5, history atol 1e-3)
+    and K4 against ctc_grad (rel/abs 1e-3) at the backward layout's edges,
+    with frames past len, empty, repeated, infeasible and frameless items;
+    K4 gives the same bits twice and counts one launch."""
+    g = torch.Generator().manual_seed(U)
+    log_probs = torch.log_softmax(torch.randn((T, N, C), generator=g) * 2,
+                                  -1)
+    targets = torch.randint(1, C, (N, U), generator=g)
+    input_lengths = torch.randint(2 * U + 1, T + 1, (N,), generator=g)
+    target_lengths = torch.randint(1, U + 1, (N,), generator=g)
+    _edge_items(input_lengths, target_lengths, targets, T, U)
+    args = [t.to(cuda) for t in (log_probs, targets, input_lengths,
+                                 target_lengths)]
+    hist = torch.empty((N, T, 2 * U + 1), device=cuda)
+    loss = ctc_cuda.ctc_fwd_cuda(*args, history=hist)
+    loss_e, hist_e = ctc.ctc_forward_history(*args)
+    torch.testing.assert_close(loss, loss_e, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(hist, hist_e, rtol=1e-5, atol=1e-3)
+    gn = torch.rand(N, generator=g).to(cuda) + 0.5
+    before = ctc_cuda.bwd_launches
+    got = ctc_cuda.ctc_bwd_cuda(*args, hist, loss, gn)
+    torch.cuda.synchronize()
+    assert ctc_cuda.bwd_launches == before + 1
+    want = ctc.ctc_grad(*args, hist, loss, gn)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+    assert torch.equal(got, ctc_cuda.ctc_bwd_cuda(*args, hist, loss, gn))
 
 
 # ------------------------------------------------------- RNN-T joint (K9)
@@ -799,6 +884,69 @@ def test_star_bwd_kernel_matches_plain(cuda, T, N, V, U, penalty):
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
     assert torch.equal(got, star_cuda.star_bwd_cuda(*args, hist, loss, g,
                                                     penalty))
+
+
+# (T, N, V, U): S = 4U+3 at K8b's lane (K = 4) and warp (128 states)
+# edges, lstm:512 --star-penalty's lattice, and long targets: S = 1027
+# (K = 16) and 4091, the longest K8a takes (K = 32 over a warpgroup)
+STAR_EDGE_SHAPES = [(60, 6, 12, 7), (60, 6, 12, 8), (140, 6, 12, 31),
+                    (140, 6, 12, 32), (385, 48, 512, 96),
+                    (700, 5, 20, 256), (2300, 5, 20, 1022)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,N,V,U", STAR_EDGE_SHAPES)
+def test_star_lattice_kernels_at_layout_edges(cuda, T, N, V, U):
+    """K8a against star_forward_history and K8b against star_grad at the
+    backward layout's edges (the tolerances of the tests above), with
+    frames past len, empty, repeated, infeasible and frameless items; K8b
+    gives the same bits twice and counts one launch."""
+    args = _star_inputs(cuda, T, N, V, U, seed=U + 7)
+    S = 4 * U + 3
+    hist = torch.empty((N, T, S), device=cuda)
+    loss = star_cuda.star_fwd_cuda(*args, -0.5, history=hist)
+    loss_e, hist_e = star.star_forward_history(*args, -0.5)
+    torch.testing.assert_close(loss, loss_e, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(hist, hist_e, rtol=1e-5, atol=1e-3)
+    gn = torch.rand(N, generator=torch.Generator().manual_seed(U)).to(
+        cuda) + 0.5
+    before = star_cuda.bwd_launches
+    got = star_cuda.star_bwd_cuda(*args, hist, loss, gn, -0.5)
+    torch.cuda.synchronize()
+    assert star_cuda.bwd_launches == before + 1
+    want = star.star_grad(*args, hist, loss, gn, -0.5)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+    assert torch.equal(got, star_cuda.star_bwd_cuda(*args, hist, loss, gn,
+                                                    -0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K4", "K8b"])
+def test_lattice_bwd_kernels_with_rows_too_wide_to_stage(cuda, kernel):
+    """30,000 classes: the plan writes the class sums straight to the
+    gradient and zeros the empty columns (no staged rows); against the
+    plain versions within rel/abs 1e-3, the same bits twice."""
+    if kernel == "K4":
+        args = _ctc_inputs(cuda, T=40, N=5, C=30000, U=12, seed=6)
+        S, C = 25, 30000
+        assert not ctc_cuda.plan(S, C).dense
+        hist = torch.empty((5, 40, S), device=cuda)
+        loss = ctc_cuda.ctc_fwd_cuda(*args, history=hist)
+        g = torch.rand(5, device=cuda) + 0.5
+        run = lambda: ctc_cuda.ctc_bwd_cuda(*args, hist, loss, g)
+        want = ctc.ctc_grad(*args, hist, loss, g)
+    else:
+        args = _star_inputs(cuda, 40, 5, 15000, 5, seed=6)
+        assert not star_cuda.plan(23, 30000).dense
+        hist = torch.empty((5, 40, 23), device=cuda)
+        loss = star_cuda.star_fwd_cuda(*args, -0.5, history=hist)
+        g = torch.rand(5, device=cuda) + 0.5
+        run = lambda: star_cuda.star_bwd_cuda(*args, hist, loss, g, -0.5)
+        want = star.star_grad(*args, hist, loss, g, -0.5)
+    got = run()
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+    assert torch.equal(got, run())
 
 
 @pytest.mark.cuda
@@ -1736,5 +1884,5 @@ def test_kernel_sources_hash_tracks_every_source():
             "star_fwd.cu", "star_bwd.cu", "joint_lse.cu",
             "joint_lse_bwd.cu", "flash_fwd.cu", "flash_bwd.cu",
             "fused_ce.cu", "decode_attn.cu", "q8_matmul.cu", "mma.cuh",
-            "class_sum.cuh"} <= names
+            "lattice_bwd.cuh", "sm90.cuh"} <= names
     assert len(kernels.sources_hash()) == 64

@@ -122,6 +122,65 @@ def test_star_ctc_loss_and_grads_match_pallas(penalty, kind):
         assert got[-1].item() > 1e8
 
 
+def test_star_ctc_loss_and_grads_match_pallas_at_long_targets():
+    """R3: a lattice of 1203 states (U = 300), past the card kernels' old
+    1019, through the StarCTCLoss Function on CPU tensors against the JAX
+    package's Pallas kernels in interpret mode, T = 700, V = 40: losses
+    and grads within TOL, as at the short lattices above."""
+    rng = np.random.default_rng(8)
+    T, V, U = 700, 40, 300
+    x = rng.normal(size=(T, 2, V)).astype(np.float32) * 2
+    lp = (x - np.log(np.exp(x).sum(-1, keepdims=True))).astype(np.float32)
+    tg = rng.integers(1, V, (2, U)).astype(np.int32)
+    il, tl = np.array([700, 640], np.int32), np.array([300, 150], np.int32)
+    g = np.array([1.0, 0.5], np.float32)
+    lpt = torch.from_numpy(lp).requires_grad_(True)
+    got = TSC.star_ctc_loss(lpt, torch.from_numpy(tg), torch.from_numpy(il),
+                            torch.from_numpy(tl), star_penalty=-0.5)
+    (got * torch.from_numpy(g)).sum().backward()
+
+    def f(lp):
+        return JSP.star_ctc_loss_pallas(lp, jnp.asarray(tg), jnp.asarray(il),
+                                        jnp.asarray(tl), star_penalty=-0.5,
+                                        interpret=True)
+    want, vjp = jax.vjp(f, jnp.asarray(lp))
+    (gw,) = vjp(jnp.asarray(g))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(lpt.grad.numpy(), np.asarray(gw), **TOL)
+
+
+@pytest.mark.parametrize("kind", ["feasible", "infeasible", "full"])
+def test_star_grad_masked_back_edge_into_a_lanes_first_state_adds_nothing(
+        monkeypatch, kind):
+    """K8b leaves out the back-edge term of the blanks at s = 0 mod 4 (a
+    sweep lane's first state, whose s-1 is the previous lane's): the edge
+    is masked there, and the plain star_grad without the term gives the
+    same bits, infeasible items (whose gradients come from masked paths)
+    included."""
+    lp, tg, il, tl = _data(seed=11, infeasible=kind == "infeasible",
+                           full=kind == "full")
+    star_lp, star_targets = TS.intersperse_stars(
+        torch.from_numpy(lp), torch.from_numpy(tg).long(), -0.5)
+    args = (star_lp, star_targets, torch.from_numpy(il),
+            torch.from_numpy(tl))
+    loss, hist = TS.star_forward_history(*args, -0.5)
+    g = torch.tensor([1.0, 0.5, 2.0])
+    want = TS.star_grad(*args, hist, loss, g, -0.5)
+    lse = TS._lse
+
+    def without(*xs):
+        if len(xs) == 6:                # the backward stencil, s-1 last
+            back = xs[5].clone()
+            back[:, 0::4] = TS.FILL
+            xs = (*xs[:5], back)
+        return lse(*xs)
+    monkeypatch.setattr(TS, "_lse", without)
+    got = TS.star_grad(*args, hist, loss, g, -0.5)
+    assert torch.equal(got, want)
+    if kind == "infeasible":
+        assert loss[-1].item() > 1e8 and got[:, -1].abs().max() > 0
+
+
 def test_star_ctc_loss_without_grad_is_the_plain_lattice():
     """Serving on the CPU takes the JAX package's plain lattice, as its
     dispatch does without the kernels."""
