@@ -47,17 +47,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      widths (phases 2 and 5: H=1024 encoder, H=512 prediction net)
   9. kernels K8a/K8b (Star-CTC lattice, forward and backward) against the
      plain star_forward_history / star_grad at lstm:512's train shapes;
-     K8b's same bits on two more runs, its planted faults, and the
-     masked back edge it leaves out adding nothing to star_grad; then
-     K3, K4, K8a and K8b on long lattices (S = 2049 and 2051) against
-     their plain versions
+     each one's same bits on more runs and its planted faults (K8a: the
+     label edges across the sweep's warp and lane edges dropped), the
+     masked back edge K8b leaves out adding nothing to star_grad; K8a
+     with its history at S = 1027 and 4091 (times too); then K3, K4, K8a
+     and K8b on long lattices (S = 2049 and 2051) against their plain
+     versions
  10. rnn-transducer:lstm:512 at full width, batch 16 x 1200 frames, U=24:
      one train step and one transcription batch through ``loop.System``
      (counts reset just before each, read just after), kernel path
      against the plain path, train and eval utt/s, peak memory, a profile
      of the train step
  11. lstm:512 ``--star-penalty -0.5``: one train step at batch 48 x 12 s,
-     the same checks, train utt/s
+     the same checks (and K8a's and K8b's plans), train utt/s
  11b. --rnn-q8 on every acoustic path (counts reset just before each,
      read just after: K1-q8/K2-q8 only, no exact-mode K1/K2, each on the
      persistent kernels but K1-q8 below H = 1024): ``hac
@@ -84,8 +86,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      planted faults emulated through K10 that must exceed the limit: the
      last vocab tile's mask dropped, one chunk left out of the merge), and
      fp32 at N=2048; the cuBLAS product torch.mm(x, w.T) timed alone beside
- 15. kernel K11 (decode attention) against the plain decode_attend at hat
-     --batch's (B=32, S=256, E=768, H=12) with starts, and at B=1
+ 15. kernel K11 (decode attention) against the plain decode_attend at
+     K11_CASES: hat --batch's steps (B=32, S=256, E=768, H=12, fill levels
+     96 and 159) with starts and at B=1, GPT-2 small's longest fill (1000
+     of 1024 rows) and K11's 10 MiB edge (B=1, 3000 of 3412), and
+     gpt-nano's hat steps (E=64, H=2: heads of 32; B=3 with starts, B=1,
+     S=64) that phase 18 drives; the same
+     bits twice, one kernel a call, planted faults (the first step of
+     rows left out; a cluster's peers' max and sum ignored); times beside
+     plain, SDPA and the bound
  16. GPT-2 small (``decoder``) scoring: a random checkpoint written by
      ``python -m haloop_tpu_torch.init --seed 0 decoder``, then
      forward_all on 16 x 1024 packed rows of 64-token segments and on 32 x
@@ -96,6 +105,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      the segment mask dropped), real tokens/s, peak memory, profiles
  17. GPT-2 small generation: generate at B=32 (left-padded 17-32-token
      prompts) and at B=1, 128 greedy tokens: exact K11 launches, tokens/s,
+     a profile of one call (device busy share, K11's share of it),
      and the kernel path against the plain path under teacher forcing of
      the kernel path's tokens (beside plain bf16 against plain fp32, and
      at B=32 a planted fault the gate must catch: the left padding
@@ -226,6 +236,11 @@ JOINT_TOL = dict(atol=1e-5, rtol=1e-5)
 JOINT_DG_TOL = dict(atol=1e-4, rtol=1e-5)
 # K8a against its plain version with the kernel's numerics (loss, history)
 STAR_TOL = dict(atol=1e-4, rtol=1e-5)
+STAR_HIST_TOL = dict(atol=1e-3, rtol=1e-5)
+# K8a's long lattices (T, N, V, U, seed): S = 1027 and 4091 (the longest
+# it takes; K = 8 over 5 and 16 warps), as tests/test_torch_kernels.py
+# draws them
+STAR_LONG = ((700, 5, 20, 256, 1), (2300, 5, 20, 1022, 2))
 STAR_PENALTY = -0.5
 # the transducer's transcription on the card against the same decode on
 # the CPU from the same features: fp32 products summed in another order
@@ -243,6 +258,31 @@ ATTN_TOL = {"bfloat16": dict(atol=2e-2, rtol=2e-2, mean=2e-3),
 CE_TOL = dict(atol=1e-3, rtol=1e-4)
 # K11's y in bf16: the JAX package's bound (tests/test_decode_attn.py)
 DECODE_TOL = dict(atol=2e-2, rtol=2e-2)
+# K11's y in bf16, max |d| as a share of the largest |y| (over 1,000 rows
+# and more |y| falls under DECODE_TOL's atol, as for K12). Sound: K11 rounds
+# the same normalized p to bf16 as the plain version, so only a p within
+# rounding of a bf16 boundary (exp2 against exp) and the fp32 sums' order
+# move y, by a bf16 step of it: read 0 to 1.9e-3 (NVIDIA H100). Each run
+# also reads planted faults that must exceed it: the first step of rows
+# left out (through K11, starts raised by a step) and, where the plan
+# takes a cluster, the peers' (max, sum) ignored (k11_emulate)
+K11_REL = 1e-2
+# K11's shapes (label, B, S, fill level, left-pad starts, E, H), bf16: at
+# GPT-2 small's widths hat --batch's steps at fill levels 96 and 159
+# (32-token prompts, 128 new tokens), its longest fill and K11's 10 MiB
+# edge (S = 3412 rows); at gpt-nano:300:64's (heads of 32, a 64-row cache)
+# the last step of phase 18's hat --batch (3 prompts of up to 18 tokens, 16
+# new) and a step of its interactive hat. No driven path launches K11 in
+# fp32 (the card tests hold that mode)
+K11_CASES = (("B=32, L=96, starts", 32, 256, 96, True, 768, 12),
+             ("B=1, L=96", 1, 256, 96, False, 768, 12),
+             ("B=32, L=159, starts", 32, 256, 159, True, 768, 12),
+             ("B=1, L=159", 1, 256, 159, False, 768, 12),
+             ("B=32, L=1000, starts", 32, 1024, 1000, True, 768, 12),
+             ("B=1, L=1000", 1, 1024, 1000, False, 768, 12),
+             ("B=1, L=3000", 1, 3412, 3000, False, 768, 12),
+             ("gpt-nano B=3, L=33, starts", 3, 64, 33, True, 64, 2),
+             ("gpt-nano B=1, L=17", 1, 64, 17, False, 64, 2))
 # K12's y in bf16, max |d| as a share of the largest |y|: over 4,000 rows
 # of randn |y| is about 0.03, under DECODE_TOL's atol, so the limit scales
 # with y. Sound: one bf16 step of the largest |y| (at most 2^-7 of it)
@@ -531,6 +571,45 @@ def star_faults(star, plan):
     check(bool(warp), f"K8b's plan {plan} has no warp edge to fault")
     return {f"label edges into {warp} dropped (warp edges)": drop(warp),
             f"label edges into {lane} dropped (lane edges)": drop(lane)}
+
+
+def star_fwd_faults(torch, star, plan, args, loss_e, hist_e):
+    """K8a's edge faults, computed from its plain version
+    star_forward_history with the label edge s-4 -> s dropped into the
+    label states whose s-4 the sweep reads from another lane
+    (``edge_states(plan, 3)``: a lane's register 3, whose s-4 is the
+    previous lane's last): at the warps' edges (shared memory) and at a
+    lane edge inside each warp (a shuffle). -> {label: (max |d loss|,
+    max |d hist|)}; each must read beyond STAR_TOL or the history's
+    limit."""
+    warp, lane = edge_states(plan, 3)
+    check(bool(warp), f"K8a's plan {plan} has no warp edge to fault")
+    out = {}
+    for label, states in ((f"label edges into {warp} dropped (warp edges)",
+                           warp),
+                          (f"label edges into {lane} dropped (lane edges)",
+                           lane)):
+        lattice = star._lattice
+
+        def dropped(*a):
+            emit, types, same, lens, ulens, ext = lattice(*a)
+            same = same.clone()
+            same[:, states] = True
+            return emit, types, same, lens, ulens, ext
+        star._lattice = dropped
+        try:
+            loss, hist = star.star_forward_history(*args, STAR_PENALTY)
+        finally:
+            star._lattice = lattice
+        ok_l, dl = close(loss, loss_e, STAR_TOL)
+        ok_h, dh = close(hist, hist_e, STAR_HIST_TOL)
+        print(f"K8a planted fault, {label}: max|dloss| {dl:.3e}, max|dhist| "
+              f"{dh:.3e}, beyond the limits: {not (ok_l and ok_h)}",
+              flush=True)
+        check(not (ok_l and ok_h), f"K8a's planted fault ({label}) reads "
+                                   f"within STAR_TOL and STAR_HIST_TOL")
+        out[label] = (dl, dh)
+    return out
 
 
 def star_grad_without_first_back_edges(star, args):
@@ -1608,27 +1687,34 @@ def phase_star(torch, dev):
     U = (star_targets.shape[1] - 1) // 2
     S = 4 * U + 3
     args = (star_lp, star_targets, il, tl)
+    fplan = star_cuda.fwd_plan(S, C2)
     loss = star_cuda.star_fwd_cuda(*args, STAR_PENALTY)
     hist = torch.empty((N, T, S), device=dev)
     loss_h = star_cuda.star_fwd_cuda(*args, STAR_PENALTY, history=hist)
+    hist2 = torch.empty_like(hist)
+    loss_h2 = star_cuda.star_fwd_cuda(*args, STAR_PENALTY, history=hist2)
     torch.cuda.synchronize()
     loss_e, hist_e = star.star_forward_history(*args, STAR_PENALTY)
     ref = star.star_ctc_forward_score(log_probs, targets, il, tl,
                                       STAR_PENALTY)
     ok_l, err = close(loss, loss_e, STAR_TOL)
-    ok_h, err_h = close(hist, hist_e, dict(atol=1e-3, rtol=1e-5))
+    ok_h, err_h = close(hist, hist_e, STAR_HIST_TOL)
     rel = ((loss - ref).abs() / ref.abs())[ok].max().item()
-    print(f"K8a star_fwd N={N} T={T} 2V={C2} S={S} penalty {STAR_PENALTY}: "
-          f"max|dloss|={err:.3e} max|dhist|={err_h:.3e} against "
-          f"star_forward_history (tol {STAR_TOL}, history atol 1e-3); max "
-          f"rel|dloss|={rel:.3e} against star_ctc_forward_score on feasible "
-          f"items (tol {CTC_REL_TOL}); infeasible loss "
-          f"{loss[~ok].tolist()}", flush=True)
+    same = torch.equal(loss_h, loss_h2) and torch.equal(hist, hist2)
+    print(f"K8a star_fwd N={N} T={T} 2V={C2} S={S} penalty {STAR_PENALTY}, "
+          f"plan {fplan}: max|dloss|={err:.3e} max|dhist|={err_h:.3e} "
+          f"against star_forward_history (tol {STAR_TOL}, history "
+          f"{STAR_HIST_TOL}); max rel|dloss|={rel:.3e} against "
+          f"star_ctc_forward_score on feasible items (tol {CTC_REL_TOL}); "
+          f"infeasible loss {loss[~ok].tolist()}; the same bits twice: "
+          f"{same}", flush=True)
     check(torch.equal(loss, loss_h) and bool(torch.isfinite(hist).all()),
           "K8a with the alpha history differs from K8a without")
     check(ok_l and ok_h, "K8a disagrees with star_forward_history")
     check(rel <= CTC_REL_TOL, "K8a disagrees with star_ctc_forward_score")
     check(bool((loss[~ok] >= 1e8).all()), "K8a infeasible loss not large")
+    check(same, "K8a gives other bits on another run")
+    fwd_faults = star_fwd_faults(torch, star, fplan, args, loss_e, hist_e)
 
     gvec = torch.rand(N, generator=torch.Generator().manual_seed(5)).to(dev) \
         + 0.5
@@ -1675,11 +1761,15 @@ def phase_star(torch, dev):
         b_ms, b_by = bound(4 * cells + small +
                            (4 * N * T * S if history else 0), 0,
                            K8A_ELEM * cells)
+        cyc, mhz = cycles_a_frame(ms, il, T)
         print(f"K8a star_fwd history={history}: kernel {ms:.3f} ms, plain "
               f"(star_forward_history) {plain_ms:.3f} ms, no library call, "
-              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+              f"bound {b_ms:.4f} ms ({b_by}); {cyc:.0f} cycles a frame of "
+              f"the longest item at {mhz:.0f} MHz", flush=True)
         reports[history] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                                plan=list(fplan), planted_faults=fwd_faults)
+    reports[True]["by_shape"] = star_long_fwd(torch, dev)
     ms = cuda_ms(lambda: star_cuda.star_bwd_cuda(*bargs))
     b_plain = cuda_ms(lambda: star.star_grad(*bargs))
     b_ms, b_by = bound(4 * (2 * cells + T * N * C2 + N) + small, 0,
@@ -1692,6 +1782,47 @@ def phase_star(torch, dev):
                           plain_ms=b_plain, bound_ms=b_ms, bound_by=b_by,
                           library_ms=None)
     return reports
+
+
+def star_long_fwd(torch, dev):
+    """K8a with its history at STAR_LONG's lattices against
+    star_forward_history, the same bits twice; times beside the plain
+    version and the bound. -> reports by shape."""
+    from haloop_tpu_torch.ops import star, star_cuda
+    out = {}
+    for T, N, V, U, seed in STAR_LONG:
+        raw, targets, il, tl = long_lattice_inputs(torch, dev, T, N, V, U,
+                                                   seed)
+        args = (*star.intersperse_stars(raw, targets), il, tl)
+        S = 4 * U + 3
+        hist, hist2 = (torch.empty((N, T, S), device=dev) for _ in range(2))
+        loss = star_cuda.star_fwd_cuda(*args, STAR_PENALTY, history=hist)
+        loss2 = star_cuda.star_fwd_cuda(*args, STAR_PENALTY, history=hist2)
+        loss_e, hist_e = star.star_forward_history(*args, STAR_PENALTY)
+        ok_l, err = close(loss, loss_e, STAR_TOL)
+        ok_h, err_h = close(hist, hist_e, STAR_HIST_TOL)
+        same = torch.equal(loss, loss2) and torch.equal(hist, hist2)
+        check(ok_l and ok_h and same, f"K8a at S = {S} disagrees with "
+                                      f"star_forward_history, or its bits "
+                                      f"differ on another run")
+        ms = cuda_ms(lambda: star_cuda.star_fwd_cuda(
+            *args, STAR_PENALTY, history=hist))
+        plain_ms = cuda_ms(lambda: star.star_forward_history(*args,
+                                                             STAR_PENALTY))
+        cells = lattice_cells(il, S, T)
+        b_ms, b_by = bound(4 * (cells + N * (2 * U + 1) + 3 * N + N * T * S),
+                           0, K8A_ELEM * cells)
+        cyc, _ = cycles_a_frame(ms, il, T)
+        plan = star_cuda.fwd_plan(S, 2 * V)
+        print(f"K8a star_fwd with history at N={N} T={T} S={S}, plan "
+              f"{tuple(plan)}: max|dloss| {err:.3e}, max|dhist| {err_h:.3e}, "
+              f"the same bits twice; kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); {cyc:.0f} "
+              f"cycles a frame", flush=True)
+        out[f"S={S} (T={T}, N={N})"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None, plan=list(plan))
+    return out
 
 
 def long_lattice_inputs(torch, dev, T, N, V, U, seed):
@@ -1916,6 +2047,9 @@ def phase_star_train(torch, dev, card):
     check_counts("Star-CTC train step", launches,
                  dict(lstm_fwd_residual=3, lstm_bwd=3, star_fwd_history=1,
                       star_bwd=1))
+    from haloop_tpu_torch.ops import star_cuda
+    print(f"Star-CTC train step: K8a's plan {star_cuda.fwd_plan(387, 1024)}, "
+          f"K8b's {star_cuda.plan(387, 1024)}", flush=True)
     check_persistent("Star-CTC train step")
     check_against_plain(torch, system, batch, "Star-CTC train step")
 
@@ -2471,46 +2605,142 @@ def check_ce_route(path, launches):
           f"{path}: K10 did not take the warp-specialized kernel")
 
 
+def k11_inputs(torch, dev, B, S, L, pad, E=768):
+    """q, k_new, v_new (B, E) (strided rows of one projection), the caches
+    (B, S, E) and left-pad starts (or None), bf16, from seed B + L."""
+    g = torch.Generator().manual_seed(B + L)
+    qkv = torch.randn((B, 3 * E), generator=g).to(dev, torch.bfloat16)
+    q, kn, vn = qkv.split(E, dim=-1)
+    kc = torch.randn((B, S, E), generator=g).to(dev, torch.bfloat16)
+    vc = torch.randn((B, S, E), generator=g).to(dev, torch.bfloat16)
+    starts = torch.randint(0, 16, (B,), generator=g).to(dev) if pad else None
+    return q, kn, vn, kc, vc, starts
+
+
+def k11_emulate(q, k_new, v_new, k_cache, v_cache, length, starts, n_head,
+                cluster, step, fault=None):
+    """K11's design in torch ops (csrc/decode_attn.cu decode) -> y (B, E);
+    the caches written at row ``length``. Each (row, head)'s attended rows
+    are cut into ``cluster`` runs of whole steps of ``step`` rows; each
+    run's max and sum of e = 2^(s - max) (scores in log2 units) are taken
+    alone and then over the runs, p = e / sum is rounded to the cache
+    dtype, and the runs' p . v sums are added in run order. ``fault``:
+    "peers ignored" (each run normalizes by its own max and sum) or "first
+    step left out" (each row's first ``step`` attended rows not
+    attended)."""
+    import torch
+    B, S, E = k_cache.shape
+    H, D = n_head, E // n_head
+    k_cache[:, length] = k_new
+    v_cache[:, length] = v_new
+    n1 = length + 1
+    kh = k_cache[:, :n1].float().view(B, n1, H, D).transpose(1, 2)
+    vh = v_cache[:, :n1].float().view(B, n1, H, D).transpose(1, 2)
+    s = torch.einsum("bhd,bhjd->bhj", q.float().view(B, H, D), kh) * \
+        (1.4426950408889634 / D ** 0.5)
+    j = torch.arange(n1, device=q.device)[None]
+    start = (starts.long().clamp(min=0) if starts is not None else
+             torch.zeros(B, dtype=torch.long, device=q.device))[:, None]
+    per = -(-(-(-(length - start + 1) // cluster)) // step) * step
+    run = ((j - start) // per).clamp(0, cluster - 1)       # (B, n1)
+    live = (j >= start) & (j <= length)
+    if fault == "first step left out":
+        live &= j >= start + step
+    s = s.masked_fill(~live[:, None], float("-inf"))
+    onehot = torch.nn.functional.one_hot(run, cluster).bool()   # (B, n1, C)
+    at = onehot[:, None] & live[:, None, :, None]               # (B,1,n1,C)
+    m_r = torch.where(at, s[..., None], float("-inf")).amax(2)  # (B,H,C)
+    m = m_r.amax(-1, keepdim=True).expand_as(m_r)
+    if fault == "peers ignored":
+        m = m_r
+    m_j = torch.gather(m, 2, run[:, None].expand(B, H, n1))
+    e = torch.exp2(s - m_j).masked_fill(~live[:, None], 0.0)
+    l_r = torch.where(at, e[..., None], 0.0).sum(2)             # (B,H,C)
+    ll = l_r.sum(-1, keepdim=True).expand_as(l_r)
+    if fault == "peers ignored":
+        ll = l_r
+    p = (e / torch.gather(ll, 2, run[:, None].expand(B, H, n1))).to(
+        v_cache.dtype).float()
+    acc = torch.zeros((B, H, D), device=q.device)
+    for r in range(cluster):
+        pr = torch.where(run[:, None] == r, p, 0.0)
+        acc = acc + torch.einsum("bhj,bhjd->bhd", pr, vh)
+    return acc.to(v_cache.dtype).reshape(B, E)
+
+
+def k11_rel(got, want):
+    """max |got - want| as a share of the largest |want| (K11_REL)."""
+    return ((got.float() - want.float()).abs().max() /
+            want.float().abs().max()).item()
+
+
 def phase_decode(torch, dev):
-    """K11 at hat --batch's step (B=32, S=256, E=768, H=12, rows 0..96,
-    left-pad starts) and at B=1."""
-    from haloop_tpu_torch.ops import decode_attn, decode_attn_cuda
+    """K11 at K11_CASES: hat --batch's steps (B=32, S=256, E=768, H=12,
+    fill levels 96 and 159, left-pad starts) and B=1, GPT-2 small's
+    longest fill (1000 of S=1024) and K11's 10 MiB edge (B=1, 3000 of
+    S=3412), gpt-nano's hat steps (E=64, H=2, S=64; B=3 with starts, B=1),
+    bf16: against decode_attend (the caches bit for bit, y within
+    DECODE_TOL and within K11_REL of the largest |y|), the same bits on a
+    second call, one kernel a call; planted faults that must read past
+    K11_REL: the first step of rows left out (K11 itself, starts raised by
+    a step) and, where the plan takes a cluster, the peers' (max, sum)
+    ignored (k11_emulate on the same inputs); times beside the plain
+    version, SDPA over the head-split cache and the bound."""
+    from haloop_tpu_torch.ops import decode_attn, decode_attn_cuda as dac
     reports = {}
-    S, E, H, L = 256, 768, 12, 96
-    for B in (32, 1):
-        g = torch.Generator().manual_seed(B)
-        qkv = torch.randn((B, 3 * E), generator=g).to(dev, torch.bfloat16)
-        q, kn, vn = qkv.split(E, dim=-1)
-        kc = torch.randn((B, S, E), generator=g).to(dev, torch.bfloat16)
-        vc = torch.randn((B, S, E), generator=g).to(dev, torch.bfloat16)
-        starts = torch.randint(0, 16, (B,), generator=g).to(dev) \
-            if B > 1 else None
+    for label, B, S, L, pad, E, H in K11_CASES:
+        D = E // H
+        q, kn, vn, kc, vc, starts = k11_inputs(torch, dev, B, S, L, pad, E)
         k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
-        y = decode_attn_cuda.decode_attn_cuda(q, kn, vn, k1, v1, L, starts,
-                                              n_head=H)
+        n0 = dac.k11_kernel_launches()
+        y = dac.decode_attn_cuda(q, kn, vn, k1, v1, L, starts, n_head=H)
         torch.cuda.synchronize()
+        once = dac.k11_kernel_launches() == n0 + 1
         y_e = decode_attn.decode_attend(q, kn, vn, k2, v2, L, starts,
                                         n_head=H)
         exact = torch.equal(k1, k2) and torch.equal(v1, v2)
         ok, err = close(y.float(), y_e.float(), DECODE_TOL)
-        print(f"K11 decode_attn B={B} S={S} E={E} H={H} row {L}"
-              f"{' with starts' if B > 1 else ''}: caches equal the plain "
-              f"version's: {exact}; max|dy|={err:.3e} (tol {DECODE_TOL})",
-              flush=True)
-        check(exact and ok, f"K11 disagrees with decode_attend at B={B}")
-        kernel = lambda: decode_attn_cuda.decode_attn_cuda(
-            q, kn, vn, k1, v1, L, starts, n_head=H)
-        ms = cuda_ms(kernel)
+        rel = k11_rel(y, y_e)
+        same = torch.equal(y, dac.decode_attn_cuda(q, kn, vn, k1, v1, L,
+                                                   starts, n_head=H))
+        plan = dac.plan(B, H, L, D, 2, dac.multiprocessors(dev))
+        step = dac.step_rows(D, 2)
+        first = starts.long() if starts is not None else \
+            torch.zeros(B, dtype=torch.long, device=dev)
+        faults = {"the first step of rows left out": k11_rel(
+            dac.decode_attn_cuda(q, kn, vn, k1.clone(), v1.clone(), L,
+                                 first + step, n_head=H), y_e)}
+        if plan.cluster > 1:
+            faults["the cluster peers' (max, sum) ignored"] = k11_rel(
+                k11_emulate(q, kn, vn, kc.clone(), vc.clone(), L, starts, H,
+                            plan.cluster, step, "peers ignored"), y_e)
+        print(f"K11 decode_attn {label} (S={S} E={E} H={H}), plan "
+              f"{tuple(plan)}: caches equal the plain version's: {exact}; "
+              f"max|dy|={err:.3e} (tol {DECODE_TOL}), {rel:.3e} of the "
+              f"largest |y| (limit {K11_REL}); the same bits twice: {same}; "
+              f"one kernel: {once}; planted faults "
+              f"{ {k: round(v, 4) for k, v in faults.items()} }", flush=True)
+        check(exact and ok and rel <= K11_REL,
+              f"K11 disagrees with decode_attend at {label}")
+        check(same and once, f"K11 at {label}: other bits on a second call, "
+                             f"or not one kernel a call")
+        for f, v in faults.items():
+            check(v > K11_REL, f"K11 at {label}: the planted fault ({f}) "
+                               f"reads within K11_REL")
+        ms = cuda_ms(lambda: dac.decode_attn_cuda(q, kn, vn, k1, v1, L,
+                                                  starts, n_head=H))
         plain_ms = cuda_ms(lambda: decode_attn.decode_attend(
             q, kn, vn, k2, v2, L, starts, n_head=H))
         lib_ms = sdpa_decode_ms(torch, q, k1, v1, L, starts, H)
         b_ms, b_by = decode_bound(starts, B, L, E, H)
-        print(f"K11 decode_attn B={B}: kernel {ms:.4f} ms, plain "
+        print(f"K11 decode_attn {label}: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, SDPA over the head-split cache "
               f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})", flush=True)
-        reports[f"B={B}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                 bound_ms=b_ms, bound_by=b_by,
-                                 library_ms=lib_ms)
+        reports[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              bound_ms=b_ms, bound_by=b_by,
+                              library_ms=lib_ms, rel_err=rel,
+                              plan=list(plan), planted_faults=faults)
+        del kc, vc, k1, v1, k2, v2
     return by_shape(reports)
 
 
@@ -3006,6 +3236,13 @@ def phase_hat(torch, dev, ckpt, card):
         print(f"{what}: {B * new / sec * 1e3:.1f} tokens/s (aggregate over "
               f"{B} streams; {sec:.1f} ms a call, median of 3; "
               f"{[round(t, 1) for t in times]}) on {card}", flush=True)
+        _, by_name = profile_step(torch, step, f"one {what} call")
+        total = sum(t for _, t in by_name.values())
+        k11 = sum(t for name, (_, t) in by_name.items()
+                  if "decode<" in name or "decode_tc<" in name)
+        print(f"{what}: K11 {k11 / 1e6:.3f} ms of the call's "
+              f"{total / 1e6:.3f} ms of kernel time "
+              f"({100 * k11 / max(total, 1):.1f}%)", flush=True)
     return launches
 
 

@@ -77,11 +77,15 @@ __device__ void sweep(const Layout& L, char* sm, const int* tg, int C,
     }
   }
   const int F = L.frames;
+  const bool ph_on = blockIdx.x == 0 && ls == 0;   // --phases stamps
   for (int b = 0; b * F < len; ++b) {
+    const long long tw = hl::stamp();
     sweep_enter(L, sm, b);
+    long long ring_wait = hl::stamp() - tw;
     const int r = b % L.depth;
     for (int f = 0; f < F && b * F + f < len; ++f) {
       const int i = b * F + f;
+      const long long ts0 = hl::stamp();
       const float* em = ring_row(L, sm, r, 0, f);
       float* be = ring_row(L, sm, r, 2, f);
       float e[K];
@@ -114,6 +118,7 @@ __device__ void sweep(const Layout& L, char* sm, const int* tg, int C,
           beta[j] = lse3(q[j], a1, a2);
         }
       }
+      const long long ts1 = hl::stamp();
 #pragma unroll
       for (int j = 0; j < K; ++j) {
         if (ls * K + j < S) {
@@ -121,6 +126,7 @@ __device__ void sweep(const Layout& L, char* sm, const int* tg, int C,
           q[j] = e[j] + beta[j];
         }
       }
+      const long long ts2 = hl::stamp();
       if (L.sweep > 1 && i + 1 < len) {   // the edges for the next frame
         float* ed = edge + ((i & 1) * L.sweep + w) * 8;
         if (lane == 0) {
@@ -129,6 +135,13 @@ __device__ void sweep(const Layout& L, char* sm, const int* tg, int C,
         }
         sweep_bar(L.lanes);
       }
+      // frame i's cycles: its slot's ring wait (at the slot's first
+      // frame), the stencil, the beta row, the edge barrier
+      hl::keep_phase(ph_on, 0, i, ring_wait);
+      hl::keep_phase(ph_on, 1, i, ts1 - ts0);
+      hl::keep_phase(ph_on, 2, i, ts2 - ts1);
+      hl::keep_phase(ph_on, 3, i, hl::stamp() - ts2);
+      ring_wait = 0;
     }
     sweep_leave(L, sm, b);
   }
@@ -223,3 +236,8 @@ extern "C" int hl_ctc_bwd(const void* log_probs, const void* targets,
   }
   return static_cast<int>(err);
 }
+
+#ifdef HL_PHASES
+// the --phases build's stamps of the last launch (block 0's frames)
+extern "C" int hl_ctc_bwd_phases(void* out) { return hl::copy_phases(out); }
+#endif

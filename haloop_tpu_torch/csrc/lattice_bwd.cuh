@@ -1,5 +1,6 @@
-// The skeleton shared by the lattice backward kernels K4 (ctc_bwd.cu) and
-// K8b (star_bwd.cu): one block an utterance, warp-specialized.
+// The backward pieces of the lattice skeleton (lattice.cuh), shared by the
+// lattice backward kernels K4 (ctc_bwd.cu) and K8b (star_bwd.cu): one
+// block an utterance, warp-specialized.
 //
 //   * Sweep warps (a warpgroup, or fewer for short lattices) run the
 //     reverse beta sweep and nothing else: lane l of the sweep owns the
@@ -43,28 +44,14 @@
 #include <stdint.h>
 
 #include "sm90.cuh"
+#include "lattice.cuh"
 
 namespace hl {
 namespace lat {
 
 constexpr int LONG = 4;         // classes of more states: a warp's sum
 constexpr int LONG_REGS = 8;    // a long class's addresses a lane keeps
-constexpr int MAX_FRAMES = 4;
-constexpr int MAX_DEPTH = 4;
 constexpr int GROUPS = 2;       // scatter groups, taking alternate slots
-constexpr int MAX_WARPS = 12;   // sweep + scatter warps of a block
-
-// the kernels' launch bound for K states a lane: from 16 on, 8 warps (the
-// sweep's registers)
-__host__ __device__ constexpr int max_threads(int K) {
-  return K >= 16 ? 256 : 32 * MAX_WARPS;
-}
-constexpr float L2E = 1.4426950408889634f;
-constexpr float LN2 = 0.69314718055994531f;
-
-__host__ __device__ inline size_t align16(size_t x) {
-  return (x + 15) & ~static_cast<size_t>(15);
-}
 
 struct Layout {
   int S, C, K, lanes, sweep, scatter, frames, depth, slot;
@@ -136,59 +123,9 @@ inline bool plan_ok(const Layout& L, size_t smem) {
          smem <= 232448;
 }
 
-__device__ __forceinline__ float lg2(float x) {
-  float y;
-  asm("lg2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// e^(a - m), with log2(e) folded in after the exact difference
-__device__ __forceinline__ float exp_rel(float a, float m) {
-  return ex2((a - m) * L2E);
-}
-
-__device__ __forceinline__ void sweep_bar(int threads) {
-  asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
-}
-
 // the named barrier of scatter group g (2 + g)
 __device__ __forceinline__ void group_bar(int g, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(2 + g), "r"(threads) : "memory");
-}
-
-// wait until the phase of parity ``parity`` has completed, the thread
-// suspended meanwhile (a time hint of 10 ms, as CUTLASS's barriers): a
-// waiting warp leaves its sub-partition's issue slots to the others
-__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, %3;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity), "r"(0x989680)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-
-// the mbarrier's arrival once this thread's earlier cp.asyncs have landed
-// (its count holds one arrival a thread: noinc)
-__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
-                   "r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 __device__ __forceinline__ uint32_t in_bar(const Layout& L, char* sm,
@@ -209,12 +146,6 @@ __device__ __forceinline__ float* ring_row(const Layout& L, char* sm, int r,
                                            int kind, int f) {
   return reinterpret_cast<float*>(sm + L.ring) +
          ((size_t)(r * 3 + kind) * L.frames + f) * L.slot;
-}
-
-// state s's address in a ring row (K states a lane, a power of 2)
-template <int K>
-__device__ __forceinline__ int addr_of(const Layout& L, int s) {
-  return (s % K) * L.lanes + s / K;
 }
 
 // Entry of every thread of the block: the mbarriers, each state's class in
@@ -286,7 +217,7 @@ __device__ inline void build_lists(const Layout& L, char* sm,
   }
   __syncthreads();
   for (int s = tid; s < L.S; s += nt)
-    order[start[lab[s]] + rank[s]] = addr_of<K>(L, s);
+    order[start[lab[s]] + rank[s]] = addr_of<K>(L.lanes, s);
   if (warp < 2) {       // the long classes, and the others with states
     int* list = warp == 0 ? longs : shorts;
     int count = 0;
@@ -359,7 +290,7 @@ __device__ inline void scatter(const Layout& L, char* sm,
     float* em = ring_row(L, sm, r, 0, 0);
     float* al = ring_row(L, sm, r, 1, 0);
     for (int s = gt; s < L.S; s += nsg) {
-      const int a = addr_of<K>(L, s);
+      const int a = addr_of<K>(L.lanes, s);
       const float* h = hist_n + (size_t)t0 * L.S + s;
       const float* e = em_n + (size_t)t0 * em_step + lab[s];
 #pragma unroll
@@ -397,8 +328,10 @@ __device__ inline void scatter(const Layout& L, char* sm,
   for (int b = gid; b < nb; b += GROUPS) {
     const int r = b % R;
     const int nf = min(F, len - b * F);
+    const long long ts0 = stamp();
     bar_wait(in_bar(L, sm, r), (b / R) & 1);
     bar_wait(beta_bar(L, sm, r), (b / R) & 1);
+    const long long ts1 = stamp();
     float* row = rows + (size_t)(gid * 2 + ((b / GROUPS) & 1)) * F * L.C;
     // where class c's sum of frame f goes
     auto sum_at = [&](int f, int c) -> float* {
@@ -474,8 +407,10 @@ __device__ inline void scatter(const Layout& L, char* sm,
       }
     }
     group_bar(gid, nsg);         // the slot is read; its rows are complete
+    const long long ts2 = stamp();
     mbar_arrive(empty_bar(L, sm, r));
     if (b + R < nb) load(b + R);
+    const long long ts3 = stamp();
     // copy the rows out whole, zeroing them behind (or, without staged
     // rows, zero the empty columns)
     if (!L.dense) {
@@ -514,6 +449,13 @@ __device__ inline void scatter(const Layout& L, char* sm,
         }
       }
     }
+    // the --phases build's cycles of group 0's slot b: ring wait, class
+    // sums, refill, copy-out
+    const bool ph_on = blockIdx.x == 0 && tid == 0;
+    keep_phase(ph_on, 4, b / GROUPS, ts1 - ts0);
+    keep_phase(ph_on, 5, b / GROUPS, ts2 - ts1);
+    keep_phase(ph_on, 6, b / GROUPS, ts3 - ts2);
+    keep_phase(ph_on, 7, b / GROUPS, stamp() - ts3);
   }
   cp_async_wait_all();
 }

@@ -492,4 +492,30 @@ __device__ __forceinline__ void wgmma_rs_m64n32(float (&d)[16],
         "n"(TRANS_B));
 }
 
+// ------------------------------------------------------------ phases
+
+// Phase stamps, compiled in only where the kernels are built with
+// -DHL_PHASES (the --phases runs of scripts/decode_probe.py and
+// scripts/lattice_probe.py, into a library of their own:
+// kernels.trace_phases): stamp() reads the SM's clock, and keep_phase(on,
+// k, i, v) keeps v as phase k of item i (a block, a frame) where `on`, in
+// the translation unit's hl_phase, which its hl_*_phases entry copies out.
+// Elsewhere stamp() is 0 and keep_phase does nothing: both compile away.
+constexpr int PHASES = 8, PHASE_ITEMS = 4096;
+#ifdef HL_PHASES
+static __device__ long long hl_phase[PHASES][PHASE_ITEMS];
+__device__ __forceinline__ long long stamp() { return clock64(); }
+__device__ __forceinline__ void keep_phase(bool on, int k, int i,
+                                           long long v) {
+  if (on && i < PHASE_ITEMS) hl_phase[k][i] = v;
+}
+inline int copy_phases(void* out) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(out, hl_phase, sizeof(hl_phase)));
+}
+#else
+__device__ __forceinline__ long long stamp() { return 0; }
+__device__ __forceinline__ void keep_phase(bool, int, int, long long) {}
+#endif
+
 }  // namespace hl

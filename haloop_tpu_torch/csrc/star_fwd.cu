@@ -1,4 +1,5 @@
-// Star-CTC forward lattice: per-utterance negative log-likelihood.
+// Star-CTC forward lattice: per-utterance negative log-likelihood and,
+// when asked for, the alpha history the backward reads.
 //
 // Replaces: haloop_tpu/ops/star_pallas.py _star_fwd_kernel (launched by
 // _lattice_fwd, entry star_ctc_loss_pallas), together with the one-hot
@@ -8,183 +9,272 @@
 // The trellis has S = 4U+3 states over the doubled (2V) vocabulary: blank,
 // <star>\t1, blank, t1, ..., blank, <star>, blank (state s: a blank when
 // s % 2 == 0, a star when s % 4 == 1, a label when s % 4 == 3; its class
-// is star_targets[(s-1)/2] for odd s). The padded lane layout is the TPU
-// kernel's: PAD = 4 virtual start lanes at 0.0 (NEG after the first
-// frame), the S state lanes, and a SENTINEL lane (-7007.7007) after them.
-// For frame t < input_length, with a = alpha_{t-1} by lane L = PAD + s:
-//   pos   = lse(a[L-1], a[L])                      (from prev or self)
-//   reach = lse(a[L-3], a[L-1], a[L-2])
-//   blank: pos;   star: lse(pos, a[L+1]) + penalty (the back edge from
-//   the blank after the star);   label: reach if its label equals the one
-//   at s-4, else lse(reach, a[L-4]);
-//   alpha_t[L] = that + em_t[s]
-// where lse is the TPU kernel's (max clamped at NEG = -1e9, exps summed
-// in order). alpha is frozen from the input length on, and
-//   loss = -lse(alpha at the last four state lanes, PAD+4u-1 .. PAD+4u+2)
+// is star_targets[(s-1)/2] for odd s). Before state 0 the TPU kernel's
+// padded layout has PAD = 4 virtual start lanes at 0.0 (NEG after the
+// first frame); of them the stencil reads only the last, "state -1". For
+// frame t < input_length, with a = alpha_{t-1}:
+//   blank: lse(a[s-1], a[s])
+//   star:  lse(a[s-1], a[s], a[s+1]) + penalty   (a[s+1]: the back edge
+//          from the blank after the star)
+//   label: lse(a[s-3], a[s-1], a[s-2]) if its label equals the one at s-4,
+//          else lse(a[s-3], a[s-1], a[s-2], a[s-4])
+//   alpha_t[s] = that + em_t[s]
+// where lse is the TPU kernel's (max clamped at NEG = -1e9). alpha is
+// frozen from the input length on, and
+//   loss = -lse(alpha at the last four states, 4u-1 .. 4u+2)
 // at t = input_length - 1 (1e9 for an item with no frames).
 //
 // What bounds it on the H100: the frames are sequential and each is a
-// 6-point stencil over at most 4096 lanes, so the lattice is latency
-// bound (one emission load and one block barrier a frame), not by bytes
-// or operations: at N=48, T'=385, S=387 it reads ~7 MB of emissions.
+// 6-point stencil over at most 4091 states, so an utterance's lattice is a
+// chain of T dependent stencils (three to five exponentials and a
+// logarithm a state); its floor is T times one frame's latency, not its
+// bytes (at N=48, T'=385, S=387: ~7 MB of emissions in, a 29 MB history
+// out).
 //
-// This design: K3's (ctc_fwd.cu). One block per utterance, each thread
-// the padded lanes tid, tid + blockDim, ... (PER of them: 1, 2 or 4; at
-// most 1024 threads, 4096 lanes); alpha is double-buffered in shared
-// memory; each state's emission is gathered inside the kernel straight
-// from the (T, N, 2V) star log-probs, one frame ahead of its use, so the
-// (N, T, S) tensor the TPU path builds with a one-hot matmul never
-// exists. The alpha history (N, T, S), which the backward needs, is
-// written only when asked for.
+// This design: the forward mirror of K8b (star_bwd.cu) on the lattice
+// skeleton (lattice.cuh). One block an utterance.
+// - Sweep warps hold K contiguous states a lane in registers
+//   (ops/lattice_cuda.py forward_plan): K = 4 over a warpgroup at S = 387
+//   (up to 8 warps), 8 over up to 16 warps for longer lattices (4,096
+//   states), so that a state's type (s % 4) is its
+//   register's index mod 4: the stencil's left neighbours s-1 .. s-4 come
+//   from the lane's own registers except at its first blank (s-1) and its
+//   first label (s-4), which read the previous lane's last state by one
+//   __shfl_up_sync; the star's back edge s+1 is always the lane's own.
+//   Only a warp's last lane hands its last state to the next warp, through
+//   shared memory behind a named barrier of the sweep warps, once a frame.
+//   (2 states a lane over 7 warps, K4's stencil, read 11% slower at S =
+//   387: PERF.md.)
+// - Loader warps gather each frame's per-state emissions from the (T, N,
+//   2V) star log-probs into an mbarrier ring in shared memory by cp.async,
+//   `depth` slots of `frames` frames ahead (lattice.cuh fwd_load), so the
+//   (N, T, S) tensor the TPU path builds with a one-hot matmul never
+//   exists; the sweep meets the ring once a slot.
+// - lse in log2 units, ex2 and lg2 of the special function unit.
+// - The history (N, T, S), when asked for, is written straight from the
+//   sweep's registers: a lane's K contiguous states as 16-byte stores where
+//   the row is 16-byte aligned (8-byte, or single, stores elsewhere); the
+//   frozen rows past the input length the same way.
+// - The loss: the last four states' alphas through shared memory, their lse
+//   (exact expf and logf) by one thread.
 
 #include <cuda_runtime.h>
 
+#include "lattice.cuh"
+
 namespace {
 
+using namespace hl::lat;
+using hl::ex2;
+
 constexpr float NEG = -1e9f;
-constexpr float SENTINEL = -7007.7007f;
-constexpr int PAD = 4;
-constexpr int MAX_LANES = 4096;
-constexpr int MAX_PER = 4;          // lanes a thread, at 1024 threads
+constexpr float FILL = 2.f * NEG;    // a term that is not in the lattice
 
 __device__ __forceinline__ float lse2(float a, float b) {
   const float m = fmaxf(fmaxf(a, b), NEG);
-  return m + logf(expf(a - m) + expf(b - m));
+  return fmaf(lg2(exp_rel(a, m) + exp_rel(b, m)), LN2, m);
 }
 
 __device__ __forceinline__ float lse3(float a, float b, float c) {
   const float m = fmaxf(fmaxf(fmaxf(a, b), c), NEG);
-  return m + logf(expf(a - m) + expf(b - m) + expf(c - m));
+  return fmaf(lg2(exp_rel(a, m) + exp_rel(b, m) + exp_rel(c, m)), LN2, m);
 }
 
-template <int PER>
-__global__ void star_fwd(const float* __restrict__ star_lp,      // (T, N, C2)
-                         const int* __restrict__ star_targets,   // (N, 2U+1)
-                         const int* __restrict__ input_lengths,  // (N,)
-                         const int* __restrict__ target_lengths, // (N,)
-                         float* __restrict__ loss,               // (N,)
-                         float* __restrict__ hist,  // (N, T, S) or null
-                         float penalty, int T, int N, int C2, int U) {
-  extern __shared__ float alpha[];   // 2 * PER * blockDim.x
-  const int n = blockIdx.x;
-  const int S = 4 * U + 3;
-  const int lanes = PAD + S + 1;
-  const int nt = blockDim.x;
-  const int* st = star_targets + (size_t)n * (2 * U + 1);
+__device__ __forceinline__ float lse4(float a, float b, float c, float d) {
+  const float m = fmaxf(fmaxf(fmaxf(fmaxf(a, b), c), d), NEG);
+  return fmaf(lg2(exp_rel(a, m) + exp_rel(b, m) + exp_rel(c, m) +
+                  exp_rel(d, m)),
+              LN2, m);
+}
 
-  // each lane's state type, class (clamped into the vocabulary, like a
-  // gather) and whether its label repeats the one at s-4
-  unsigned blank = 0, star = 0, same = 0;   // bit k: lane tid + k nt
-  const float* em[PER];
+__device__ __forceinline__ int clamp_class(int raw, int C2) {
+  return min(max(raw, 0), C2 - 1);
+}
+
+// a lane's K states to p, those of them in the lattice (`valid`): 16-byte
+// stores where p is 16-byte aligned, 8-byte where it is 8-byte aligned
+// (either the same for every lane of a warp), else single ones
+template <int K>
+__device__ __forceinline__ void store_run(float* p, const float (&a)[K],
+                                          int valid) {
+  const uintptr_t x = reinterpret_cast<uintptr_t>(p);
+  if (valid >= K && (x & 15) == 0) {
 #pragma unroll
-  for (int k = 0; k < PER; ++k) {
-    const int s = threadIdx.x + k * nt - PAD;
-    const bool real = s >= 0 && s < S;
-    int label = 0;
-    if (real && s % 2 == 0) blank |= 1u << k;
-    if (real && s % 4 == 1) star |= 1u << k;
-    if (real && s % 2 != 0) {
-      const int raw = st[(s - 1) / 2];
-      label = min(max(raw, 0), C2 - 1);
-      if (s % 4 == 3 && s >= 4 && raw == st[(s - 5) / 2]) same |= 1u << k;
-    }
-    em[k] = star_lp + (size_t)n * C2 + label;
+    for (int j = 0; j < K; j += 4)
+      *reinterpret_cast<float4*>(p + j) =
+          make_float4(a[j], a[j + 1], a[j + 2], a[j + 3]);
+  } else if (valid >= K && (x & 7) == 0) {
+#pragma unroll
+    for (int j = 0; j < K; j += 2)
+      *reinterpret_cast<float2*>(p + j) = make_float2(a[j], a[j + 1]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+      if (j < valid) p[j] = a[j];
   }
+}
 
-  const int len = max(min(input_lengths[n], T), 0);
-  const int ulen = min(max(target_lengths[n], 0), U);
-  const int last = PAD + 4 * ulen + 2;       // lane of the final blank
-  const size_t t_stride = (size_t)N * C2;
-  float* cur = alpha;
-  float* nxt = alpha + PER * nt;
-  float* hist_n = hist ? hist + (size_t)n * T * S : nullptr;
+template <int K>
+__device__ void sweep(const Fwd& L, char* sm, const int* st, float penalty,
+                      int len, int ulen, int T, float* hist_n, float* loss) {
+  static_assert(K % 4 == 0, "a state's type from its register");
+  const int ls = threadIdx.x, w = ls >> 5, lane = ls & 31;
+  const int S = L.S;
+  float* edge = reinterpret_cast<float*>(sm + L.edge);
 
-  float e_next[PER];
+  float a[K];
+  uint32_t same = 0;   // bit j: a label whose label repeats the one at s-4
 #pragma unroll
-  for (int k = 0; k < PER; ++k) {
-    const int L = threadIdx.x + k * nt, s = L - PAD;
-    const bool real = s >= 0 && s < S;
-    if (L < lanes) cur[L] = L < PAD ? 0.f : (L == PAD + S ? SENTINEL : NEG);
-    e_next[k] = (real && len > 0) ? em[k][0] : 0.f;
+  for (int j = 0; j < K; ++j) {
+    const int s = ls * K + j;
+    a[j] = NEG;
+    if (s % 4 == 3 && s >= 4 && s < S && st[(s - 1) / 2] == st[(s - 5) / 2])
+      same |= 1u << j;
   }
-  float final_score = NEG;
-  __syncthreads();
-  for (int t = 0; t < len; ++t) {
-    // the next frame's emissions first, a frame ahead of their use
-    float e[PER];
+  const int F = L.frames;
+  const bool ph_on = blockIdx.x == 0 && ls == 0;   // --phases stamps
+  for (int b = 0; b * F < len; ++b) {
+    const long long tw = hl::stamp();
+    fwd_enter(L, sm, b);
+    long long ring_wait = hl::stamp() - tw;
+    for (int f = 0; f < F && b * F + f < len; ++f) {
+      const int i = b * F + f;
+      const long long ts0 = hl::stamp();
+      const float* em = fwd_row(L, sm, b % L.depth, f);
+      float e[K];
 #pragma unroll
-    for (int k = 0; k < PER; ++k) {
-      const int s = threadIdx.x + k * nt - PAD;
-      e[k] = e_next[k];
-      if (s >= 0 && s < S && t + 1 < len)
-        e_next[k] = em[k][(t + 1) * t_stride];
-    }
+      for (int j = 0; j < K; ++j) e[j] = em[j * L.lanes + ls];
+      // state ls K - 1, the previous lane's last: across a warp's edge the
+      // previous warp's, before state 0 the start lane (0, then NEG)
+      const float start = i == 0 ? 0.f : NEG;
+      float prev = __shfl_up_sync(0xffffffffu, a[K - 1], 1);
+      if (lane == 0)
+        prev = w == 0 ? start
+                      : (i == 0 ? NEG : edge[((i - 1) & 1) * L.sweep + w - 1]);
+      float v[K];
 #pragma unroll
-    for (int k = 0; k < PER; ++k) {
-      const int L = threadIdx.x + k * nt, s = L - PAD;
-      if (L >= lanes) continue;
-      const bool real = s >= 0 && s < S;
-      float v = L == PAD + S ? SENTINEL : NEG;   // non-state lanes
-      if (real) {
-        const float from_prev = cur[L - 1], from_self = cur[L];
-        const float pos = lse2(from_prev, from_self);
-        float trans;
-        if ((blank >> k) & 1) {
-          trans = pos;
-        } else if ((star >> k) & 1) {
-          trans = lse2(pos, cur[L + 1]) + penalty;
+      for (int j = 0; j < K; ++j) {
+        // (indices mod K: the branch not taken is a valid register too)
+        const float l1 = j > 0 ? a[(j + K - 1) % K] : prev;
+        if (j % 4 == 0) {
+          v[j] = lse2(l1, a[j]);
+        } else if (j % 4 == 1) {
+          v[j] = lse3(l1, a[j], a[(j + 1) % K]) + penalty;
+        } else if (j % 4 == 2) {
+          v[j] = lse2(l1, a[j]);
         } else {
-          const float reach = lse3(cur[L - 3], from_prev, cur[L - 2]);
-          trans = (same >> k) & 1 ? reach : lse2(reach, cur[L - 4]);
+          const float l4 = j >= 4 ? a[(j + K - 4) % K] : prev;
+          v[j] = lse4(a[(j + K - 3) % K], l1, a[(j + K - 2) % K],
+                      (same >> j) & 1 ? FILL : l4);
         }
-        v = trans + e[k];
-        if (hist) hist_n[(size_t)t * S + s] = v;
       }
-      nxt[L] = v;
+#pragma unroll
+      for (int j = 0; j < K; ++j) a[j] = ls * K + j < S ? v[j] + e[j] : NEG;
+      const long long ts1 = hl::stamp();
+      if (hist_n) store_run<K>(hist_n + (size_t)i * S + ls * K, a, S - ls * K);
+      const long long ts2 = hl::stamp();
+      if (L.sweep > 1 && i + 1 < len) {   // the edges for the next frame
+        if (lane == 31) edge[(i & 1) * L.sweep + w] = a[K - 1];
+        sweep_bar(L.lanes);
+      }
+      // frame i's cycles: its slot's ring wait (at the slot's first
+      // frame), the stencil, the history row, the edge barrier
+      hl::keep_phase(ph_on, 0, i, ring_wait);
+      hl::keep_phase(ph_on, 1, i, ts1 - ts0);
+      hl::keep_phase(ph_on, 2, i, ts2 - ts1);
+      hl::keep_phase(ph_on, 3, i, hl::stamp() - ts2);
+      ring_wait = 0;
     }
-    __syncthreads();
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
+    fwd_leave(L, sm, b);
   }
   // frames past the input length keep the frozen lattice
-  if (hist) {
-#pragma unroll
-    for (int k = 0; k < PER; ++k) {
-      const int L = threadIdx.x + k * nt, s = L - PAD;
-      if (s >= 0 && s < S)
-        for (int t = len; t < T; ++t) hist_n[(size_t)t * S + s] = cur[L];
-    }
-  }
+  if (hist_n)
+    for (int t = len; t < T; ++t)
+      store_run<K>(hist_n + (size_t)t * S + ls * K, a, S - ls * K);
 
-  if (threadIdx.x == 0) {
-    if (len > 0) {
-      const float a = cur[last - 3], b = cur[last - 2], c = cur[last - 1],
-                  d = cur[last];
-      const float m = fmaxf(fmaxf(fmaxf(fmaxf(a, b), c), d), NEG);
-      final_score = m + logf(expf(d - m) + expf(c - m) + expf(b - m) +
-                             expf(a - m));
-    }
-    loss[n] = -final_score;
+  // the loss: the last four states (4u-1 .. 4u+2; state -1 the start lane)
+  float* fin = reinterpret_cast<float*>(sm + L.fin);
+  const int f0 = 4 * ulen - 1;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const int s = ls * K + j;
+    if (s >= f0 && s <= f0 + 3) fin[s - f0] = a[j];
   }
+  if (ls == 0 && f0 < 0) fin[0] = NEG;
+  sweep_bar(L.lanes);
+  if (ls == 0) {
+    float final_score = NEG;
+    if (len > 0) {
+      const float a0 = fin[0], b0 = fin[1], c0 = fin[2], d0 = fin[3];
+      const float m = fmaxf(fmaxf(fmaxf(fmaxf(a0, b0), c0), d0), NEG);
+      final_score = m + logf(expf(d0 - m) + expf(c0 - m) + expf(b0 - m) +
+                             expf(a0 - m));
+    }
+    *loss = -final_score;
+  }
+}
+
+template <int K>
+__global__ void __launch_bounds__(fwd_max_threads(K))
+    star_fwd(const float* __restrict__ star_lp,      // (T, N, C2)
+             const int* __restrict__ star_targets,   // (N, 2U+1)
+             const int* __restrict__ input_lengths,  // (N,)
+             const int* __restrict__ target_lengths, // (N,)
+             float* __restrict__ loss,               // (N,)
+             float* __restrict__ hist,  // (N, T, S) or null
+             float penalty, int T, int N, int C2, int U, int sweep_warps,
+             int loaders, int frames, int depth) {
+  extern __shared__ __align__(16) char sm[];
+  const int S = 4 * U + 3;
+  const Fwd L = fwd_layout(S, K, sweep_warps, loaders, frames, depth);
+  const int n = blockIdx.x;
+  const int* st = star_targets + (size_t)n * (2 * U + 1);
+  fwd_init(L, sm, [&](int s) {
+    return (s % 2) ? clamp_class(st[(s - 1) / 2], C2) : 0;
+  });
+  const int len = max(min(input_lengths[n], T), 0);
+  if (threadIdx.x < L.lanes) {
+    const int ulen = min(max(target_lengths[n], 0), U);
+    sweep<K>(L, sm, st, penalty, len, ulen, T,
+             hist ? hist + (size_t)n * T * S : nullptr, loss + n);
+  } else {
+    fwd_load<K>(L, sm, star_lp + (size_t)n * C2, (size_t)N * C2, len);
+  }
+}
+
+template <int K>
+cudaError_t launch(const Fwd& L, cudaStream_t stream, const float* lp,
+                   const int* st, const int* il, const int* tl, float* loss,
+                   float* hist, float penalty, int T, int N, int C2, int U) {
+  static unsigned done = 0;
+  const cudaError_t err = hl::allow_smem(
+      done, reinterpret_cast<const void*>(star_fwd<K>), 232448);
+  if (err != cudaSuccess) return err;
+  star_fwd<K><<<N, 32 * (L.sweep + L.loaders), L.bytes, stream>>>(
+      lp, st, il, tl, loss, hist, penalty, T, N, C2, U, L.sweep, L.loaders,
+      L.frames, L.depth);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // star_lp (T, N, C2) fp32, the star-vocabulary log-probs; star_targets
 // (N, 2U+1), input_lengths and target_lengths (N,) int32; loss (N,) fp32;
-// hist (N, T, 4U+3) fp32 or null. Returns the launch's cudaError_t
-// (cudaErrorInvalidValue beyond 4096 lanes).
+// hist (N, T, 4U+3) fp32 or null. The plan (ops/lattice_cuda.py
+// forward_plan): K states a lane (4 or 8), sweep and loader
+// warps, frames a ring slot, the ring's slots and the shared-memory bytes.
+// Returns the launch's cudaError_t (cudaErrorInvalidValue for a plan that
+// does not fit the lattice).
 extern "C" int hl_star_fwd(const void* star_lp, const void* star_targets,
                            const void* input_lengths,
                            const void* target_lengths, void* loss, void* hist,
-                           float penalty, int T, int N, int C2, int U,
-                           void* stream) {
-  const int lanes = PAD + 4 * U + 3 + 1;
-  if (lanes > MAX_LANES || N <= 0 || C2 <= 0 || U < 0)
+                           float penalty, int T, int N, int C2, int U, int K,
+                           int sweep_warps, int loaders, int frames,
+                           int depth, int smem, void* stream) {
+  const Fwd L =
+      fwd_layout(4 * U + 3, K, sweep_warps, loaders, frames, depth);
+  if (N <= 0 || C2 <= 0 || U < 0 || smem < 0 || !fwd_plan_ok(L, smem))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = min((lanes + 31) / 32 * 32, MAX_LANES / MAX_PER);
-  const int per = (lanes + threads - 1) / threads;   // 1, 2, 3 or 4
   const auto st = static_cast<cudaStream_t>(stream);
   const auto lp = static_cast<const float*>(star_lp);
   const auto tg = static_cast<const int*>(star_targets);
@@ -192,14 +282,20 @@ extern "C" int hl_star_fwd(const void* star_lp, const void* star_targets,
   const auto tl = static_cast<const int*>(target_lengths);
   const auto ls = static_cast<float*>(loss);
   const auto h = static_cast<float*>(hist);
-  if (per == 1)
-    star_fwd<1><<<N, threads, 2 * threads * sizeof(float), st>>>(
-        lp, tg, il, tl, ls, h, penalty, T, N, C2, U);
-  else if (per == 2)
-    star_fwd<2><<<N, threads, 4 * threads * sizeof(float), st>>>(
-        lp, tg, il, tl, ls, h, penalty, T, N, C2, U);
-  else
-    star_fwd<4><<<N, threads, 8 * threads * sizeof(float), st>>>(
-        lp, tg, il, tl, ls, h, penalty, T, N, C2, U);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err;
+  switch (K) {
+    case 4:
+      err = launch<4>(L, st, lp, tg, il, tl, ls, h, penalty, T, N, C2, U);
+      break;
+    case 8:
+      err = launch<8>(L, st, lp, tg, il, tl, ls, h, penalty, T, N, C2, U);
+      break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
+
+#ifdef HL_PHASES
+// the --phases build's stamps of the last launch (block 0's frames)
+extern "C" int hl_star_fwd_phases(void* out) { return hl::copy_phases(out); }
+#endif

@@ -54,8 +54,9 @@ _SIGNATURES = {
     # f, g, lse, dlse, df, dg, partial, N, T, U1, V, stream
     "hl_joint_lse_bwd": [_P] * 7 + [_I] * 4 + [_P],
     # star_lp, star_targets, input_lengths, target_lengths, loss, hist,
-    # penalty, T, N, C2, U, stream
-    "hl_star_fwd": [_P] * 6 + [_F] + [_I] * 4 + [_P],
+    # penalty, T, N, C2, U, the plan (K, sweep warps, loader warps, frames,
+    # depth, smem), stream
+    "hl_star_fwd": [_P] * 6 + [_F] + [_I] * 10 + [_P],
     # star_lp, star_targets, input_lengths, target_lengths, hist, loss, g,
     # dlp, penalty, T, N, C2, U, the plan (K, sweep warps, scatter warps,
     # frames, depth, dense, smem), stream
@@ -72,8 +73,11 @@ _SIGNATURES = {
     # x, w, targets, nll, lse, partial, N, V, D, chunks, grid, bf16, stream
     "hl_fused_ce": [_P] * 6 + [_I] * 6 + [_P],
     # q, k_new, v_new, k_cache, v_cache, starts, y, B, S, E, H, length,
-    # q_sb, kn_sb, vn_sb, bf16, stream
-    "hl_decode_attn": [_P] * 7 + [_I] * 9 + [_P],
+    # q_sb, kn_sb, vn_sb, bf16, the plan (cluster, span, depth, smem),
+    # stream
+    "hl_decode_attn": [_P] * 7 + [_I] * 13 + [_P],
+    # (no arguments): K11's kernel launches so far
+    "hl_decode_kernels": [],
     # q, k_new, v_new, k_cache, v_cache, starts, y, part, counters, B, S,
     # E, H, length, rows, q_sb, kn_sb, vn_sb, bf16, stream
     "hl_decode_attn_split": [_P] * 9 + [_I] * 10 + [_P],
@@ -85,6 +89,12 @@ _SIGNATURES = {
     # stream
     "hl_empty": [_P],
 }
+
+# the entry points of a trace_phases build: each copies its file's stamps
+# (PHASES x PHASE_ITEMS int64, csrc/sm90.cuh) of the last launch out
+PHASE_ENTRIES = ("hl_k11_phases", "hl_star_fwd_phases", "hl_ctc_bwd_phases",
+                 "hl_star_bwd_phases")
+PHASES, PHASE_ITEMS = 8, 4096
 
 _lib = None
 _build_error = None      # the failed build's error, raised again
@@ -98,7 +108,7 @@ def _sources():
 
 
 def sources_hash():
-    h = hashlib.sha256()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in _sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -155,6 +165,23 @@ def build():
     build_seconds = time.perf_counter() - t0
     build_log = "".join(log) + r.stdout + r.stderr
     return LIB
+
+
+def trace_phases():
+    """Build, at the first launch, with the kernels' phase stamps compiled
+    in (``-DHL_PHASES``; ``csrc/sm90.cuh`` stamp / keep_phase) into a
+    library of its own beside the plain one, and bind the entry points
+    that copy the stamps out: the --phases runs of scripts/decode_probe.py
+    and scripts/lattice_probe.py. Call it before ``library``."""
+    global BUILD, LIB
+    if _lib is not None:
+        raise RuntimeError("trace_phases: the plain library is loaded")
+    if "-DHL_PHASES" not in NVCC_FLAGS:
+        NVCC_FLAGS.append("-DHL_PHASES")
+        BUILD = BUILD.with_name(BUILD.name + "_phases")
+        LIB = BUILD / LIB.name
+        for name in PHASE_ENTRIES:
+            _SIGNATURES[name] = [_P]
 
 
 def library():

@@ -1,6 +1,9 @@
-"""The launch plan of the lattice backward kernels K4 (``csrc/ctc_bwd.cu``)
-and K8b (``csrc/star_bwd.cu``), shared by ``ops/ctc_cuda.plan`` and
-``ops/star_cuda.plan``; pure Python, so the CPU tests hold it.
+"""The launch plans of the lattice kernels on ``csrc/lattice.cuh``'s
+skeleton: the backwards K4 (``csrc/ctc_bwd.cu``) and K8b
+(``csrc/star_bwd.cu``), shared by ``ops/ctc_cuda.plan`` and
+``ops/star_cuda.plan`` (``plan``), and the forward K8a
+(``csrc/star_fwd.cu``, ``ops/star_cuda.fwd_plan``: ``forward_plan``);
+pure Python, so the CPU tests hold them.
 
 One block an utterance (``csrc/lattice_bwd.cuh``): ``sweep_warps`` warps
 (at most ``SWEEP_WARPS``) run the reverse beta sweep, lane l owning the
@@ -125,3 +128,84 @@ def plan(S, C, min_per_lane, name):
                             smem, 32 * (warps + scatter))
     raise ValueError(f"{name}: a {C}-class row with {S} states does not "
                      f"fit in shared memory ({SMEM_LIMIT} bytes)")
+
+
+# The forward (K8a): sweep warps (up to FWD_SWEEP_WARPS) hold K contiguous
+# states a lane, ``loader_warps`` warps gather each frame's emissions into a
+# ring of ``depth`` slots of ``frames`` frames (one row of K x 32 x
+# sweep_warps floats a frame); ``smem`` is byte for byte
+# ``hl::lat::fwd_layout``. K is 4 over a warpgroup at the train shapes (S =
+# 387): 2 over 7 warps, K4's stencil, read 0.171 ms against 0.151–0.153
+# in one-call timings on the H100 (PERF.md).
+FWD_SWEEP_WARPS = 8
+LOADER_WARPS = 2
+FWD_K = (4, 8)          # the forward kernel's instantiations of K
+
+
+def fwd_max_warps(K):
+    """The forward's launch bound (hl::lat::fwd_max_threads): 12 warps at
+    4 states a lane, 18 at 8."""
+    return 18 if K >= 8 else MAX_WARPS
+
+
+class FwdPlan(NamedTuple):
+    states: int         # S
+    classes: int        # 2V
+    per_lane: int       # K: states a sweep lane owns
+    sweep_warps: int
+    loader_warps: int
+    frames: int         # frames a ring slot
+    depth: int          # ring slots
+    smem: int           # bytes of dynamic shared memory
+    threads: int        # 32 x (sweep_warps + loader_warps)
+
+    @property
+    def lanes(self):
+        return 32 * self.sweep_warps
+
+    @property
+    def slot(self):
+        return self.per_lane * self.lanes
+
+
+def fwd_smem_bytes(S, K, sweep_warps, frames, depth):
+    """hl::lat::fwd_layout(...).bytes: mbarriers, edge exchange, the last
+    four states, each state's class, then the ring."""
+    return (_align16(2 * depth * 8) + _align16(2 * sweep_warps * 4) + 16 +
+            _align16(S * 4) + depth * frames * K * 32 * sweep_warps * 4)
+
+
+def sweep_cap(K):
+    """The most sweep warps a forward plan with K states a lane takes:
+    FWD_SWEEP_WARPS, and 16 at 8 states a lane (at S = 4091, 16 warps of
+    8 states read 8.48 ms, 8 warps of 16 states 10.94, on the H100;
+    PERF.md)."""
+    return 16 if K == 8 else FWD_SWEEP_WARPS
+
+
+@functools.lru_cache(maxsize=256)
+def forward_plan(S, C, name):
+    """The launch of a forward lattice of ``S`` states and ``C`` classes:
+    the least K of ``FWD_K`` with which
+    ``sweep_cap(K)`` warps hold the states, only the warps that own
+    states, ``LOADER_WARPS`` loader warps, and the first ring of
+    ``RINGS`` that fits in ``SMEM_LIMIT``. Raises ValueError where no
+    such plan exists; ``name`` is the caller's, for the message."""
+    if S < 1 or C < 1:
+        raise ValueError(f"{name}: {S} states, {C} classes")
+    cap = min(MAX_STATES, 32 * sweep_cap(FWD_K[-1]) * FWD_K[-1])
+    if S > cap:
+        raise ValueError(f"{name}: {S} lattice states exceed the kernel's "
+                         f"{cap}")
+    K = next(k for k in FWD_K if 32 * sweep_cap(k) * k >= S)
+    warps = -(-(-(-S // K)) // 32)
+    if warps + LOADER_WARPS > fwd_max_warps(K):
+        raise ValueError(f"{name}: {warps} + {LOADER_WARPS} warps exceed "
+                         f"{fwd_max_warps(K)}")
+    for frames, depth in RINGS:
+        smem = fwd_smem_bytes(S, K, warps, frames, depth)
+        if smem <= SMEM_LIMIT:
+            return FwdPlan(S, C, K, warps, LOADER_WARPS, frames, depth,
+                           smem, 32 * (warps + LOADER_WARPS))
+    raise ValueError(f"{name}: {S} states do not fit in shared memory "
+                     f"({SMEM_LIMIT} bytes)")

@@ -12,8 +12,11 @@ analytic backward. ``star_ctc_loss`` picks the path:
   * otherwise (serving) K8a alone.
 A CPU tensor takes the plain versions in ``ops.star`` (through the same
 Function under autograd); a CUDA tensor launches the kernels or raises.
-K8b runs the warp-specialized lattice backward of
-``csrc/lattice_bwd.cuh`` on the launch ``plan`` gives.
+Both run on the warp-specialized lattice skeleton of ``csrc/lattice.cuh``:
+K8a sweeps the frames with K states a lane in registers while loader warps
+gather the emissions into a ring (the launch ``fwd_plan`` gives), K8b is
+its backward mirror (``csrc/lattice_bwd.cuh``, the launch ``plan``
+gives).
 """
 
 import torch
@@ -22,7 +25,7 @@ from haloop_tpu_torch import kernels
 from haloop_tpu_torch.ops import lattice_cuda
 from haloop_tpu_torch.ops import star as _star
 
-MAX_LANES = 4096      # K8a: padded lanes (PAD + 4U+3 states + 1), 1024 x 4
+MAX_STATES = 4091     # S = 4U+3 with U <= 1022: the kernels' range
 launches = 0          # K8a calls without the alpha history (serving)
 history_launches = 0  # K8a calls that write the history (under autograd)
 bwd_launches = 0      # K8b calls
@@ -31,16 +34,22 @@ bwd_launches = 0      # K8b calls
 def plan(S, C2):
     """K8b's launch for S = 4U+3 states and C2 = 2V classes
     (``lattice_cuda.plan``; K a multiple of 4, so that a state's type is
-    its register's index mod 4), refused past K8a's lanes, whose history
-    it reads."""
+    its register's index mod 4), refused past MAX_STATES."""
     _check_states("star_grad", S)
     return lattice_cuda.plan(S, C2, 4, "star_grad")
 
 
+def fwd_plan(S, C2):
+    """K8a's launch for S = 4U+3 states and C2 = 2V classes
+    (``lattice_cuda.forward_plan``), refused past MAX_STATES."""
+    _check_states("star_ctc_loss", S)
+    return lattice_cuda.forward_plan(S, C2, "star_ctc_loss")
+
+
 def _check_states(name, S):
-    if _star.PAD + S + 1 > MAX_LANES:
+    if S > MAX_STATES:
         raise ValueError(f"{name}: {S} lattice states exceed the kernel's "
-                         f"{MAX_LANES - _star.PAD - 1}")
+                         f"{MAX_STATES}")
 
 
 def star_ctc_loss(log_probs, targets, input_lengths, target_lengths,
@@ -97,11 +106,9 @@ def _lattice_args(name, star_lp, star_targets, input_lengths,
     """Checks the lattice's arguments and puts them on the card as the
     kernels take them: star_lp fp32 contiguous, the rest int32."""
     T, N, C2 = star_lp.shape
-    S = 2 * star_targets.shape[1] + 1
     if star_targets.shape[1] % 2 != 1:
         raise ValueError(f"{name}: star targets must be (N, 2U+1), got "
                          f"{tuple(star_targets.shape)}")
-    _check_states(name, S)
     if star_lp.dtype != torch.float32:
         raise TypeError(f"{name}: star log-probs must be float32, got "
                         f"{star_lp.dtype}")
@@ -139,11 +146,13 @@ def star_fwd_cuda(star_lp, star_targets, input_lengths, target_lengths,
                              f"shape {(N, T, 4 * U + 3)}")
         tensors.append(history)
     kernels.require_cuda("star_ctc_loss", *tensors)
+    p = fwd_plan(4 * U + 3, C2)
     err = kernels.library().hl_star_fwd(
         star_lp.data_ptr(), star_targets.data_ptr(),
         input_lengths.data_ptr(), target_lengths.data_ptr(), loss.data_ptr(),
         history.data_ptr() if history is not None else None, float(penalty),
-        T, N, C2, U, kernels.stream_of(star_lp))
+        T, N, C2, U, p.per_lane, p.sweep_warps, p.loader_warps, p.frames,
+        p.depth, p.smem, kernels.stream_of(star_lp))
     kernels.check(err, "hl_star_fwd")
     if history is None:
         launches += 1

@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
-"""The lattice backward kernels of the PyTorch port alone on one GPU: K4
-(CTC, ``haloop_tpu_torch/csrc/ctc_bwd.cu``) and K8b (Star-CTC,
-``csrc/star_bwd.cu``), both on ``csrc/lattice_bwd.cuh``: their build,
-checks against the plain ``ctc_grad`` / ``star_grad`` and their times.
+"""The lattice kernels of the PyTorch port on ``csrc/lattice.cuh``'s
+skeleton alone on one GPU: the forward K8a (Star-CTC,
+``haloop_tpu_torch/csrc/star_fwd.cu``) and the backwards K4 (CTC,
+``csrc/ctc_bwd.cu``) and K8b (Star-CTC, ``csrc/star_bwd.cu``, both on
+``csrc/lattice_bwd.cuh``): their build, checks against the plain
+``star_forward_history``, ``ctc_grad`` and ``star_grad``, and their
+times.
 
     python3 scripts/lattice_probe.py               # checks, then times
     python3 scripts/lattice_probe.py --against DIR # times and rates only:
@@ -12,30 +15,33 @@ checks against the plain ``ctc_grad`` / ``star_grad`` and their times.
         # one tree's times and rates as a JSON line (what --against runs)
     python3 scripts/lattice_probe.py --variants
         # this tree's plan variants timed in turns: one sweep warp or a
-        # warpgroup, 4 or 8 scatter warps, rings of (frames, slots)
+        # warpgroup, 4 or 8 scatter warps, rings of (frames, slots); K8a
+        # with 1 or 4 loader warps, 16 sweep warps, a ring of 4 x 2
     python3 scripts/lattice_probe.py --phases
-        # cycles a frame: a copy of this tree under build/lattice_phases*/
-        # with clock64 stamps in block 0 (the sweep's lane 0: ring wait,
-        # stencil, beta row, edge barrier; the scatter's first thread, a
-        # slot's ring wait, rows and loads over its frames), medians; then
-        # again with the scatter's rows left out (the sweep alone) and
-        # with the loads left out
+        # cycles a frame: the kernels built with their clock64 stamps
+        # (-DHL_PHASES, into build/haloop_tpu_torch_phases/) in block 0
+        # (the backward sweep's lane 0: ring wait, stencil, beta row, edge
+        # barrier; the scatter's first thread, a slot's ring wait, rows and
+        # loads over its frames; K8a's sweep lane 0: ring wait, stencil,
+        # history row, edge barrier), medians; then again in copies under
+        # build/lattice_ablation*/ with the scatter's rows left out (the
+        # sweep alone), with the loads left out, and so on
 
 ``--kernels-only`` (with --against or --times-only) leaves the rates out.
 DIR is another checkout of the repository (``git archive`` of a commit
 unpacked into a directory that .gitignore lists); each tree builds its
 own kernels into its own ``build/``. Shapes and inputs are
 ``chip_smoke.py``'s (phases 6 and 9): lstm:512's train lattices, K4 at
-(T'=385, N=48, C=512, U=96), K8b at (385, 48, 2V=1024, U=96). Times are
+(T'=385, N=48, C=512, U=96), K8a and K8b at (385, 48, 2V=1024, U=96);
+K8a also at ``chip_smoke.STAR_LONG``'s S = 1027 and 4091 (N=5). Times are
 CUDA events around one call behind a spin (``chip_smoke.cuda_ms``),
 median of 5, the card's name and power limit printed first: the kernel,
 its plain version, ``F.ctc_loss``'s backward beside K4 (no PyTorch call
-computes K8b's function), the bound, and the kernel's cycles a frame of
-the longest item at the card's maximum SM clock. K3 and K8a with their
-history are timed too (their R3 loop). Rates: lstm:512 CTC and Star-CTC
-train utterances/s at 48 x 12 s (``chip_smoke.host_ms``) and each train
-step's device time from torch.profiler. Needs one card; imports nothing
-of JAX.
+computes K8a's or K8b's function), the bound, and the kernel's cycles a
+frame of the longest item at the card's maximum SM clock. K3 with its
+history is timed too. Rates: lstm:512 CTC and Star-CTC train
+utterances/s at 48 x 12 s (``chip_smoke.host_ms``) and each train step's
+device time from torch.profiler. Needs one card; imports nothing of JAX.
 """
 
 import argparse
@@ -61,19 +67,23 @@ def load(tree):
 @contextlib.contextmanager
 def patched(**attrs):
     """``ops.lattice_cuda``'s module attributes set for a block (a plan
-    variant: SWEEP_WARPS, RINGS or the scatter_warps rule), the plan cache
-    cleared on the way in and out."""
+    variant: SWEEP_WARPS, RINGS, the scatter_warps rule, FWD_SWEEP_WARPS
+    or LOADER_WARPS), the plan caches cleared on the way in and out."""
     from haloop_tpu_torch.ops import lattice_cuda
     old = {k: getattr(lattice_cuda, k) for k in attrs}
+    caches = [getattr(lattice_cuda, f) for f in ("plan", "forward_plan")
+              if hasattr(lattice_cuda, f)]
     for k, v in attrs.items():
         setattr(lattice_cuda, k, v)
-    lattice_cuda.plan.cache_clear()
+    for c in caches:
+        c.cache_clear()
     try:
         yield
     finally:
         for k, v in old.items():
             setattr(lattice_cuda, k, v)
-        lattice_cuda.plan.cache_clear()
+        for c in caches:
+            c.cache_clear()
 
 
 def ptxas_lines(log):
@@ -108,12 +118,33 @@ def lattices(torch, cs, ops):
     shist = torch.empty((N, T, 2 * star_targets.shape[1] + 1), device=dev)
     sloss = star_cuda.star_fwd_cuda(*sargs, cs.STAR_PENALTY, history=shist)
     bargs = (*sargs, shist, sloss, g, cs.STAR_PENALTY)
-    return {"K4": (cargs, ctc_cuda.ctc_bwd_cuda, ctc.ctc_grad, il),
-            "K8b": (bargs, star_cuda.star_bwd_cuda, star.star_grad, sil),
-            "K3 history": (args, lambda *a: ctc_cuda.ctc_fwd_cuda(
-                *a, history=hist), None, il),
-            "K8a history": (sargs, lambda *a: star_cuda.star_fwd_cuda(
-                *a, cs.STAR_PENALTY, history=shist), None, sil)}
+    out = {"K4": (cargs, ctc_cuda.ctc_bwd_cuda, ctc.ctc_grad, il),
+           "K8b": (bargs, star_cuda.star_bwd_cuda, star.star_grad, sil),
+           "K3 history": (args, lambda *a: ctc_cuda.ctc_fwd_cuda(
+               *a, history=hist), None, il),
+           "K8a history": (sargs, lambda *a: star_cuda.star_fwd_cuda(
+               *a, cs.STAR_PENALTY, history=shist), fwd_plain(star, cs),
+               sil),
+           "K8a": (sargs, lambda *a: star_cuda.star_fwd_cuda(
+               *a, cs.STAR_PENALTY), None, sil)}
+    for T, N, V, U, seed in STAR_LONG:
+        raw, tg, lil, ltl = cs.long_lattice_inputs(torch, dev, T, N, V, U,
+                                                   seed)
+        largs = (*star.intersperse_stars(raw, tg), lil, ltl)
+        lhist = torch.empty((N, T, 4 * U + 3), device=dev)
+        out[f"K8a history S={4 * U + 3}"] = (
+            largs, lambda *a, h=lhist: star_cuda.star_fwd_cuda(
+                *a, cs.STAR_PENALTY, history=h), fwd_plain(star, cs), lil)
+    return out
+
+
+# K8a's long lattices (chip_smoke.STAR_LONG at this tree): S = 1027, 4091
+STAR_LONG = ((700, 5, 20, 256, 1), (2300, 5, 20, 1022, 2))
+
+
+def fwd_plain(star, cs):
+    """K8a's plain version with the history: (loss, history)."""
+    return lambda *a: star.star_forward_history(*a, cs.STAR_PENALTY)
 
 
 def checks(tree):
@@ -130,6 +161,24 @@ def checks(tree):
     bad = []
     for name, (args, kernel, plain, _) in lattices(torch, cs, ops).items():
         if plain is None:
+            continue
+        if name.startswith("K8a"):
+            T, N = args[0].shape[:2]
+            hist = torch.empty((N, T, args[1].shape[1] * 2 + 1),
+                               device=args[0].device)
+            loss = star_cuda.star_fwd_cuda(*args, cs.STAR_PENALTY,
+                                           history=hist)
+            loss_e, hist_e = plain(*args)
+            ok = cs.close(loss, loss_e, cs.STAR_TOL)[0] and \
+                cs.close(hist, hist_e, cs.STAR_HIST_TOL)[0]
+            same = torch.equal(loss, star_cuda.star_fwd_cuda(
+                *args, cs.STAR_PENALTY, history=hist))
+            print(f"{'ok ' if ok and same else 'BAD'} {name}: max|dloss| "
+                  f"{(loss - loss_e).abs().max().item():.3e}, max|dhist| "
+                  f"{(hist - hist_e).abs().max().item():.3e}; same bits "
+                  f"twice {same}", flush=True)
+            if not (ok and same):
+                bad.append(name)
             continue
         mod = ctc_cuda if name == "K4" else star_cuda
         n0 = mod.bwd_launches
@@ -172,6 +221,8 @@ def times(tree, variants=()):
             ms, il, args[0].shape[0])[0] if hasattr(cs, "cycles_a_frame") \
             else None
         for label, attrs in variants:
+            if label.startswith("K8a") != name.startswith("K8a"):
+                continue
             with patched(**attrs):
                 res[f"{name} {label} ms"] = cs.cuda_ms(lambda: kernel(*args))
         res[f"{name} plain ms"] = cs.cuda_ms(lambda: plain(*args))
@@ -214,62 +265,13 @@ def rates(tree):
     return out
 
 
-# --phases: clock64 stamps in a copy of the sweep loops, (old, new) text
-SWEEP_EDITS = (
-    ("  for (int b = 0; b * F < len; ++b) {\n    sweep_enter(L, sm, b);",
-     "  const bool ph_on = blockIdx.x == 0 && ls == 0;\n"
-     "  for (int b = 0; b * F < len; ++b) {\n"
-     "    const long long pe0 = clock64();\n    sweep_enter(L, sm, b);\n"
-     "    long long pw = clock64() - pe0;"),
-    ("      const int i = b * F + f;\n      const float* em",
-     "      const int i = b * F + f;\n      const long long ph0 = clock64();"
-     "\n      const float* em"),
-    ("#pragma unroll\n      for (int j = 0; j < K; ++j) {\n"
-     "        if (ls * K + j < S) {",
-     "      const long long ph1 = clock64();\n"
-     "#pragma unroll\n      for (int j = 0; j < K; ++j) {\n"
-     "        if (ls * K + j < S) {"),
-    ("      if (L.sweep > 1 && i + 1 < len) {",
-     "      const long long ph2 = clock64();\n"
-     "      if (L.sweep > 1 && i + 1 < len) {"),
-    ("    }\n    sweep_leave(L, sm, b);",
-     "      if (ph_on && i < 1024) {\n"
-     "        hl_lat_phase[0][i] = pw;\n"
-     "        hl_lat_phase[1][i] = ph1 - ph0;\n"
-     "        hl_lat_phase[2][i] = ph2 - ph1;\n"
-     "        hl_lat_phase[3][i] = clock64() - ph2;\n"
-     "      }\n      pw = 0;\n"
-     "    }\n    sweep_leave(L, sm, b);"),
-)
-SCATTER_EDITS = (
-    ("#include \"sm90.cuh\"\n",
-     "#include \"sm90.cuh\"\n\n"
-     "static __device__ long long hl_lat_phase[8][1024];\n"),
-    ("    bar_wait(in_bar(L, sm, r), (b / R) & 1);\n"
-     "    bar_wait(beta_bar(L, sm, r), (b / R) & 1);\n",
-     "    const long long ph0 = clock64();\n"
-     "    bar_wait(in_bar(L, sm, r), (b / R) & 1);\n"
-     "    bar_wait(beta_bar(L, sm, r), (b / R) & 1);\n"
-     "    const long long ph1 = clock64();\n"),
-    ("    group_bar(gid, nsg);         // the slot is read; its rows are "
-     "complete\n",
-     "    group_bar(gid, nsg);         // the slot is read; its rows are "
-     "complete\n    const long long ph2 = clock64();\n"),
-    ("    if (b + R < nb) load(b + R);\n",
-     "    if (b + R < nb) load(b + R);\n    const long long ph3 = clock64();\n"),
-    ("  }\n  cp_async_wait_all();\n}",
-     "    if (blockIdx.x == 0 && tid == 0 && b / GROUPS < 1024) {\n"
-     "      hl_lat_phase[4][b / GROUPS] = ph1 - ph0;\n"
-     "      hl_lat_phase[5][b / GROUPS] = ph2 - ph1;\n"
-     "      hl_lat_phase[6][b / GROUPS] = ph3 - ph2;\n"
-     "      hl_lat_phase[7][b / GROUPS] = clock64() - ph3;\n"
-     "    }\n  }\n  cp_async_wait_all();\n}"),
-)
-PHASE_READ = """
-extern "C" int {fn}(void* out) {{
-  return (int)cudaMemcpyFromSymbol(out, hl_lat_phase, sizeof(hl_lat_phase));
-}}
-"""
+# --phases: the kernels built with their phase stamps (kernels.trace_phases:
+# block 0's frames; the backward sweep's lane 0: ring wait, stencil, beta
+# row, edge barrier; the scatter's first thread, a slot's ring wait, class
+# sums, refill and copy-out; K8a's sweep lane 0: ring wait, stencil,
+# history row, edge barrier), then again in copies with the (old, new) text
+# edits of an ablation to the lattice headers
+FWD_PHASES = ("ring wait", "stencil", "history row", "edge barrier")
 # sweep: a frame's share of the slot's ring wait, then per frame; scatter:
 # group 0's slots (every other one), over the frames of two slots: its
 # share of a frame's throughput
@@ -298,34 +300,23 @@ ABLATIONS = {
 }
 
 
-def phases_tree(dst, ablation=()):
+def ablation_tree(dst, ablation):
     """A copy of this tree's port and chip_smoke.py at ``dst`` with the
-    stamps, the (old, new) edits of ``ablation`` to lattice_bwd.cuh, and
-    entry points hl_ctc_bwd_phases / hl_star_bwd_phases."""
+    (old, new) edits of ``ablation`` to lattice_bwd.cuh or lattice.cuh
+    (whichever holds the old text once)."""
     if dst.exists():
         shutil.rmtree(dst)
     shutil.copytree(HERE / "haloop_tpu_torch", dst / "haloop_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(HERE / "chip_smoke.py", dst / "chip_smoke.py")
     csrc = dst / "haloop_tpu_torch" / "csrc"
-    hdr = (csrc / "lattice_bwd.cuh").read_text()
-    for old, new in SCATTER_EDITS + tuple(ablation):
-        assert hdr.count(old) == 1, old
-        hdr = hdr.replace(old, new)
-    (csrc / "lattice_bwd.cuh").write_text(hdr)
-    for name, fn in (("ctc_bwd.cu", "hl_ctc_bwd_phases"),
-                     ("star_bwd.cu", "hl_star_bwd_phases")):
-        src = (csrc / name).read_text()
-        for old, new in SWEEP_EDITS:
-            assert src.count(old) == 1, (name, old)
-            src = src.replace(old, new)
-        (csrc / name).write_text(src + PHASE_READ.format(fn=fn))
-    kp = dst / "haloop_tpu_torch" / "kernels.py"
-    k = kp.read_text()
-    anchor = '    "hl_empty": [_P],'
-    assert anchor in k
-    kp.write_text(k.replace(anchor, anchor + '\n    "hl_ctc_bwd_phases": '
-                            '[_P],\n    "hl_star_bwd_phases": [_P],'))
+    hdrs = {n: (csrc / n).read_text() for n in ("lattice_bwd.cuh",
+                                                 "lattice.cuh")}
+    for old, new in ablation:
+        (n,) = [n for n, h in hdrs.items() if h.count(old) == 1]
+        hdrs[n] = hdrs[n].replace(old, new)
+    for n, h in hdrs.items():
+        (csrc / n).write_text(h)
 
 
 def phase_report(tree):
@@ -334,18 +325,20 @@ def phase_report(tree):
     import numpy as np
     import torch
     cs, kernels, ops = load(tree)
+    kernels.trace_phases()
     lib = kernels.library()
     cases = lattices(torch, cs, ops)
     _, ctc_cuda, _, star_cuda = ops
+    shape = (kernels.PHASES, kernels.PHASE_ITEMS)
     plans = {"K4": ctc_cuda.plan(193, 512), "K8b": star_cuda.plan(387, 1024)}
     for name, fn in (("K4", lib.hl_ctc_bwd_phases),
                      ("K8b", lib.hl_star_bwd_phases)):
         args, kernel, _, il = cases[name]
         kernel(*args)
         torch.cuda.synchronize()
-        buf = np.zeros((len(PHASES), 1024), np.int64)
+        buf = np.zeros(shape, np.int64)
         kernels.check(fn(buf.ctypes.data), "phases")
-        frames = min(int(il[0]), 1024)
+        frames = min(int(il[0]), kernels.PHASE_ITEMS)
         F = plans[name].frames
         sw = buf[:4, 8:frames - 8]
         sc = buf[4:, 1:frames // (2 * F) - 1] / (2 * F)
@@ -360,6 +353,22 @@ def phase_report(tree):
               ", ".join(cells), flush=True)
         ms = cs.cuda_ms(lambda: kernel(*args))
         print(f"{name}: {ms:.4f} ms", flush=True)
+    args, kernel, _, il = cases["K8a history"]
+    kernel(*args)
+    torch.cuda.synchronize()
+    buf = np.zeros(shape, np.int64)
+    kernels.check(lib.hl_star_fwd_phases(buf.ctypes.data), "phases")
+    frames = min(int(il[0]), kernels.PHASE_ITEMS)
+    F = ops[3].fwd_plan(387, 1024).frames
+    sw = buf[:len(FWD_PHASES), 8:frames - 8]
+    print(f"K8a with history: cycles a frame, sweep "
+          f"{np.median(sw[1:].sum(0)) + sw[0].mean():.0f} (ring waits once "
+          f"a slot of {F} frames; {frames} frames in block 0); " +
+          ", ".join([f"{ph} {np.median(sw[i]):.0f}" for i, ph in
+                     enumerate(FWD_PHASES[1:], 1)] +
+                    [f"ring wait (mean) {sw[0].mean():.0f}"]), flush=True)
+    print(f"K8a with history: {cs.cuda_ms(lambda: kernel(*args)):.4f} ms",
+          flush=True)
 
 
 VARIANTS = (("one sweep warp", dict(SWEEP_WARPS=1)),
@@ -367,7 +376,11 @@ VARIANTS = (("one sweep warp", dict(SWEEP_WARPS=1)),
             ("4 scatter warps", dict(scatter_warps=lambda C, K: 4)),
             ("ring 4 x 2", dict(RINGS=((4, 2),))),
             ("ring 2 x 2", dict(RINGS=((2, 2),))),
-            ("ring 1 x 2", dict(RINGS=((1, 2),))))
+            ("ring 1 x 2", dict(RINGS=((1, 2),))),
+            ("K8a 1 loader warp", dict(LOADER_WARPS=1)),
+            ("K8a 4 loader warps", dict(LOADER_WARPS=4)),
+            ("K8a 16 sweep warps", dict(FWD_SWEEP_WARPS=16)),
+            ("K8a ring 4 x 2", dict(RINGS=((4, 2),))))
 
 
 def main():
@@ -400,8 +413,10 @@ def main():
     print(card, flush=True)
     if a.phases:
         for i, (label, edits) in enumerate(ABLATIONS.items()):
-            dst = HERE / "build" / f"lattice_phases{i}"
-            phases_tree(dst, edits)
+            dst = HERE
+            if edits:
+                dst = HERE / "build" / f"lattice_ablation{i}"
+                ablation_tree(dst, edits)
             print(f"--- {label}", flush=True)
             r = subprocess.run([sys.executable, __file__, "--tree", str(dst),
                                 "--phase-report"], capture_output=True,

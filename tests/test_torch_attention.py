@@ -339,6 +339,45 @@ def test_decode_attend_matches_jax_kernel(B, S, H, D, dtype, with_starts):
                                rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("S,L,with_starts", [(1024, 1000, True),
+                                             (256, 0, False),
+                                             (256, 0, True)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attend_matches_jax_kernel_at_the_fill_edges(S, L,
+                                                           with_starts,
+                                                           dtype):
+    """K11's plain path against the JAX kernel (interpret mode) at GPT-2
+    small's longest fill (row 1000 of a 1024-row cache, left-pad starts,
+    12 heads of 64) and at the first token (row 0; starts 0, since a row
+    starts at or before the new token): the caches bit for bit, y within
+    the tolerances above."""
+    B, H, D = 2, 12, 64
+    E = H * D
+    rng = np.random.default_rng(S + L)
+    q, kn, vn = (normal(rng, B, E) for _ in range(3))
+    kc, vc = (normal(rng, B, S, E) for _ in range(2))
+    starts = None
+    if with_starts:
+        starts = rng.integers(0, min(L, 16) + 1, B).astype(np.int32)
+    jd = getattr(jnp, dtype)
+    jy, jk, jv = JD.decode_attend_update(
+        *(jnp.asarray(a, jd) for a in (q, kn, vn, kc, vc)), jnp.int32(L),
+        None if starts is None else jnp.asarray(starts), n_head=H,
+        interpret=True)
+    td = getattr(torch, dtype)
+    tk, tv = t(kc).to(td), t(vc).to(td)
+    y = TDC.decode_attend_update(
+        *(t(a).to(td) for a in (q, kn, vn)), tk, tv, L,
+        None if starts is None else t(starts), n_head=H)
+    np.testing.assert_array_equal(tk.float().numpy(),
+                                  np.asarray(jk, np.float32))
+    np.testing.assert_array_equal(tv.float().numpy(),
+                                  np.asarray(jv, np.float32))
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(y.float().numpy(), np.asarray(jy, np.float32),
+                               rtol=tol, atol=tol)
+
+
 def test_decode_attend_first_token_is_v_new():
     rng = np.random.default_rng(0)
     q, kn, vn = (t(normal(rng, 2, 64)) for _ in range(3))

@@ -1,10 +1,18 @@
-"""The designs of the decode kernels K12 (``csrc/decode_attn.cu``
-``decode_split``) and K13 (``csrc/q8_matmul.cu`` ``q8_stripes`` and
-``q8_persist``) emulated on
+"""The designs of the decode kernels K11 (``csrc/decode_attn.cu``
+``decode``), K12 (``decode_split``) and K13 (``csrc/q8_matmul.cu``
+``q8_stripes`` and ``q8_persist``) emulated on
 the CPU, block by block, and held against the plain versions and the JAX
 package's kernels (interpret mode) on the same numpy inputs; and their
-launch plans (``ops/decode_attn_cuda.split_rows``,
+launch plans (``ops/decode_attn_cuda.plan``, ``split_rows``,
 ``ops/q8_matmul_cuda.plan``).
+
+K11's emulation (``chip_smoke.k11_emulate``, which the smoke run also
+uses for a planted fault) follows the kernel: each (row, head)'s attended
+rows cut into the plan's cluster of runs of whole steps, each run's max
+and sum of 2^(s - max) taken alone and then over the runs, the normalized
+p rounded to the cache dtype, the runs' p . v added in run order. Its
+limits: ``chip_smoke.K11_REL`` of the largest |y| and DECODE_TOL in bf16,
+1e-5 in fp32; the caches bit for bit.
 
 K12's emulation follows the kernel: splits of ``rows`` rows, each walked
 in tiles of ``tile_rows`` rows; in a tile each of the 4 warps takes its
@@ -235,6 +243,170 @@ def test_k12_scratch_is_per_stream():
     finally:
         for stream in (1, 2):
             decode_attn_cuda._scratch.pop((dev.index, stream), None)
+
+
+# ------------------------------------------------------------------ K11
+
+def _k11_case(B, S, H, D, dtype, length, starts, cluster=None, seed=0,
+              fault=None):
+    """(emulated y, its caches, plain y and caches, JAX y and caches) for
+    one case; the cluster defaults to the plan's on an H100."""
+    E = H * D
+    jx, tx = _k12_inputs(seed, B, S, E, dtype)
+    itemsize = tx[3].element_size()
+    step = decode_attn_cuda.step_rows(D, itemsize)
+    if cluster is None:
+        cluster = decode_attn_cuda.plan(B, H, length, D, itemsize,
+                                        H100_SMS).cluster
+    tst = None if starts is None else torch.tensor(starts, dtype=torch.int32)
+    q, kn, vn, kc, vc = tx
+    k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    y = chip_smoke.k11_emulate(q, kn, vn, k1, v1, length, tst, H, cluster,
+                               step, fault)
+    y_p = TD.decode_attend(q, kn, vn, k2, v2, length, tst, n_head=H)
+    jst = None if starts is None else jnp.asarray(starts, jnp.int32)
+    yj, kj, vj = JD.decode_attend_update(*jx, jnp.int32(length), jst,
+                                         n_head=H, interpret=True)
+    jax_out = [torch.from_numpy(np.array(jnp.asarray(a, jnp.float32)))
+               for a in (yj, kj, vj)]
+    return dict(y=y, caches=(k1, v1), plain=(y_p, k2, v2), jax=jax_out,
+                cluster=cluster)
+
+
+# (B, S, H, D, fill level, starts): GPT-2 small's longest fill at a small
+# batch (a cluster of 8), hat's fill level 159, the first token
+K11_CASES = [(1, 1024, 4, 64, 1000, None), (2, 1024, 2, 64, 1000, [3, 17]),
+             (3, 256, 4, 32, 159, [1, 2, 3]), (2, 256, 2, 64, 0, None)]
+
+
+@pytest.mark.parametrize("B,S,H,D,L,starts", K11_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cluster", ["plan", 1, 2])
+def test_k11_design_matches_plain_and_jax(B, S, H, D, L, starts, dtype,
+                                          cluster):
+    r = _k11_case(B, S, H, D, dtype, L, starts,
+                  None if cluster == "plan" else cluster, seed=S + L)
+    y_p, k2, v2 = r["plain"]
+    assert torch.equal(r["caches"][0], k2) and torch.equal(r["caches"][1], v2)
+    np.testing.assert_array_equal(r["caches"][1].float().numpy(),
+                                  r["jax"][2].numpy())
+    for want in (y_p, r["jax"][0]):
+        if dtype == "float32":
+            torch.testing.assert_close(r["y"], want.float(), atol=1e-5,
+                                       rtol=1e-5)
+        else:
+            assert _rel(r["y"], want) <= chip_smoke.K11_REL
+            torch.testing.assert_close(r["y"].float(), want.float(),
+                                       **chip_smoke.DECODE_TOL)
+
+
+@pytest.mark.parametrize("fault", ["peers ignored", "first step left out"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k11_design_planted_faults_exceed_the_limit(fault, dtype):
+    """The cluster's peers' (max, sum) ignored (each rank normalizing by
+    its own), and each row's first step of rows left out: each reads
+    beyond K11_REL against the plain version, which the sound design
+    reads under, at a cluster of 8 (the plan's in bf16, on the tensor
+    cores; fp32 runs on the CUDA cores without one)."""
+    B, S, H, D, L = 2, 1024, 2, 64, 1000
+    itemsize = 2 if dtype == "bfloat16" else 4
+    planned = decode_attn_cuda.plan(B, H, L, D, itemsize, H100_SMS).cluster
+    assert planned == (8 if dtype == "bfloat16" else 1)
+    r = _k11_case(B, S, H, D, dtype, L, [5, 40], cluster=8, seed=7)
+    bad = _k11_case(B, S, H, D, dtype, L, [5, 40], cluster=8, seed=7,
+                    fault=fault)
+    assert _rel(r["y"], r["plain"][0]) <= chip_smoke.K11_REL
+    assert _rel(bad["y"], r["plain"][0]) > chip_smoke.K11_REL
+
+
+def test_k11_plan_at_the_main_paths_shapes():
+    """hat's fill levels 96 and 159 at B=32 and B=1, GPT-2 small's longest
+    fill and K11's 10 MiB edge (E=768, H=12, bf16, an H100's 132 SMs):
+    one block a (row, head) at hat's fills, a cluster of 8 at B=1 over
+    1,000 rows and more; a thread's chunks all in flight where they fit
+    16 slots."""
+    P = decode_attn_cuda.plan
+    assert decode_attn_cuda.tensor_cores(64, 2)
+    assert P(32, 12, 96, 64, 2, H100_SMS) == (1, 112, 2, 8 * 2 * 2048 + 448)
+    assert P(1, 12, 96, 64, 2, H100_SMS)[:3] == (1, 112, 2)
+    assert P(32, 12, 159, 64, 2, H100_SMS)[:3] == (1, 160, 4)
+    assert P(1, 12, 159, 64, 2, H100_SMS)[:3] == (1, 160, 4)
+    assert P(32, 12, 1000, 64, 2, H100_SMS)[:3] == (1, 1008, 4)
+    assert P(1, 12, 1000, 64, 2, H100_SMS)[:3] == (8, 128, 2)
+    assert P(1, 12, 3000, 64, 2, H100_SMS)[:3] == (8, 384, 4)
+
+
+def test_k11_plan_at_gpt_nanos_shapes():
+    """gpt-nano (E=64, H=2: heads of 32, bf16) runs on the tensor cores,
+    one block a (row, head), at its hat's steps (B=3 and B=1, a 64-row
+    cache)."""
+    P = decode_attn_cuda.plan
+    assert decode_attn_cuda.tensor_cores(32, 2)
+    assert decode_attn_cuda.step_rows(32, 2) == decode_attn_cuda.TC_ROWS
+    assert P(3, 2, 33, 32, 2, H100_SMS) == (1, 48, 2, 8 * 2 * 1024 + 192)
+    assert P(1, 2, 17, 32, 2, H100_SMS)[:3] == (1, 32, 2)
+
+
+def test_k11_plan_takes_a_cluster_only_where_it_paid():
+    """A cluster from 640 rows on (B=1, E=768, H=12 on an H100: one block
+    a head read faster than a cluster of 8 up to 416 rows and level at
+    512, the cluster of 8 faster from 640), and only on the tensor cores:
+    fp32 and narrow heads take one block a (row, head) at any fill."""
+    P = decode_attn_cuda.plan
+    assert decode_attn_cuda.K11_CLUSTER_MIN_ROWS == 640
+    assert P(1, 12, 638, 64, 2, H100_SMS).cluster == 1
+    assert P(1, 12, 639, 64, 2, H100_SMS).cluster == 8
+    assert P(1, 12, 511, 64, 2, H100_SMS).cluster == 1
+    for D, itemsize in ((64, 4), (32, 4), (16, 2), (8, 2)):
+        assert not decode_attn_cuda.tensor_cores(D, itemsize)
+        assert P(1, 12, 3000, D, itemsize, H100_SMS).cluster == 1
+
+
+@pytest.mark.parametrize("B", [1, 2, 5, 32])
+@pytest.mark.parametrize("D,itemsize", [(64, 2), (128, 2), (32, 2), (8, 2),
+                                        (4, 4), (32, 4), (128, 4)])
+@pytest.mark.parametrize("L", [0, 15, 96, 159, 1000, 3000])
+def test_k11_plan_fits_and_is_what_the_launcher_takes(B, D, itemsize, L):
+    """The plan's span holds a rank's share of the rows in whole steps,
+    its depth is a thread's 16-byte chunks up to 16 (or, on the tensor
+    cores, a warp's 16-row chunks up to 4), its shared memory is the
+    launcher's formula and fits a block's 227 KB beside the kernel's
+    static arrays; on the tensor cores a cluster of up to 8 blocks from
+    640 rows on, each an SM of its own and a step of rows; on the CUDA
+    cores one block a (row, head)."""
+    H = 12
+    p = decode_attn_cuda.plan(B, H, L, D, itemsize, H100_SMS)
+    step = decode_attn_cuda.step_rows(D, itemsize)
+    W = decode_attn_cuda.WARPS
+    per = -(-(-(-(L + 1) // p.cluster)) // step) * step
+    assert p.span % step == 0 and p.span >= per
+    if decode_attn_cuda.tensor_cores(D, itemsize):   # a warp's chunks
+        assert step == decode_attn_cuda.TC_ROWS
+        units = 2 * -(-(p.span // step) // W)
+        assert p.depth == min(units, decode_attn_cuda.TC_DEPTH)
+        assert p.smem == W * p.depth * step * D * itemsize + p.span * 4
+    else:                                            # a thread's chunks
+        units = 2 * -(-(p.span // (step // W)) // W)
+        assert p.depth == min(units, decode_attn_cuda.K11_DEPTH)
+        assert p.smem == p.depth * decode_attn_cuda.K11_THREADS * 16 + \
+            p.span * 4
+    static = 4 * (2 * W + W * D + 2 + D)        # the kernel's __shared__
+    assert p.smem <= decode_attn_cuda.K11_SMEM and \
+        decode_attn_cuda.K11_SMEM + static <= 232448
+    assert p.cluster in (1, 2, 4, 8)
+    if not decode_attn_cuda.tensor_cores(D, itemsize):
+        assert p.cluster == 1
+    if p.cluster > 1:
+        assert B * H * p.cluster <= H100_SMS
+        assert L + 1 >= decode_attn_cuda.K11_CLUSTER_MIN_ROWS
+        assert L + 1 >= p.cluster * step
+
+
+def test_k11_plan_refuses_scores_past_shared_memory():
+    """A cache whose row fits K11's 10 MiB but whose scores do not fit a
+    block's shared memory (60,000 rows of a 4-wide fp32 head) raises."""
+    with pytest.raises(ValueError, match="do not fit in shared memory"):
+        decode_attn_cuda.plan(1, 2, 59999, 4, 4, 2)
 
 
 # ------------------------------------------------------------------ K13

@@ -34,16 +34,21 @@ atol 1e-3, rtol 1e-4: a logsumexp over up to 50k fp32 logits summed in
 another order, with the fast exp; a target outside [0, V) adds a target
 term of 0. K11 and K12: the caches
 bit for bit; y 1e-5 in fp32, 2e-2 in bf16 (the JAX package's bounds,
-tests/test_decode_attn.py); K12 in bf16 also max |d| <= 1e-2 of the
-largest |y|, since over thousands of rows |y| falls far below 2e-2 (one
-bf16 step of the largest |y| is at most 2^-7 of it; the plain version
-rounds p to bf16 and K12 does not). K13: fp32 1e-5 of the largest output (the
+tests/test_decode_attn.py); in bf16 also max |d| <= 1e-2 of the largest
+|y| (``chip_smoke.K11_REL``, ``K12_REL``), since over thousands of rows
+|y| falls far below 2e-2 (one bf16 step of the largest |y| is at most
+2^-7 of it; the plain version rounds p to bf16 as K11 does and K12 does
+not). K13: fp32 1e-5 of the largest output (the
 same fp32 products summed in another order); bf16 2e-2 (one bf16
 rounding of each output). K1-q8 and K2-q8: rel L2 limits placed between
 the kernel against its plain version and two planted faults
 (``chip_smoke.K1Q8_REL``, ``K2Q8_REL``). K1 (both modes) and K2 in bf16,
-K1-q8, K2-q8, K4, K6, K8b, K12 and K13 give the same bits on every run.
+K1-q8, K2-q8, K4, K6, K8a, K8b, K11, K12 and K13 give the same bits on
+every run.
 """
+
+import copy
+import ctypes
 
 import pytest
 import torch
@@ -922,6 +927,52 @@ def test_star_lattice_kernels_at_layout_edges(cuda, T, N, V, U):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("T,N,V,U", [(385, 48, 512, 96), (700, 5, 20, 256),
+                                     (2300, 5, 20, 1022)])
+def test_star_fwd_kernel_with_and_without_history(cuda, T, N, V, U):
+    """K8a at lstm:512's lattice (S = 387: 4 states a lane over a
+    warpgroup), S = 1027 and 4091 (8 states a lane over 5 and 16 warps):
+    against star_forward_history within the module's tolerances; the loss
+    without the history equal to the loss with it; loss and history the
+    same bits on a second run."""
+    args = _star_inputs(cuda, T, N, V, U, seed=U + 3)
+    S = 4 * U + 3
+    assert star_cuda.fwd_plan(S, 2 * V).per_lane == (4 if S <= 1024 else 8)
+    hists = [torch.full((N, T, S), float("nan"), device=cuda)
+             for _ in range(2)]
+    loss = star_cuda.star_fwd_cuda(*args, -0.5)
+    losses = [star_cuda.star_fwd_cuda(*args, -0.5, history=h)
+              for h in hists]
+    torch.cuda.synchronize()
+    loss_e, hist_e = star.star_forward_history(*args, -0.5)
+    torch.testing.assert_close(loss, loss_e, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(hists[0], hist_e, rtol=1e-5, atol=1e-3)
+    assert torch.equal(loss, losses[0]) and torch.equal(*losses)
+    assert torch.equal(*hists)
+
+
+@pytest.mark.cuda
+def test_star_fwd_planted_edge_faults(cuda):
+    """K8a's faults at lstm:512's lattice, computed from its plain version
+    with the label edges s-4 -> s dropped where the sweep reads s-4 from
+    another lane (chip_smoke.star_fwd_faults): across the warps' edges
+    and at a lane edge inside each warp; each reads past STAR_TOL or the
+    history's limit, which the kernel reads under."""
+    args = _star_inputs(cuda, 385, 48, 512, 96, seed=99)
+    hist = torch.empty((48, 385, 387), device=cuda)
+    loss = star_cuda.star_fwd_cuda(*args, chip_smoke.STAR_PENALTY,
+                                   history=hist)
+    loss_e, hist_e = star.star_forward_history(*args,
+                                               chip_smoke.STAR_PENALTY)
+    assert chip_smoke.close(loss, loss_e, chip_smoke.STAR_TOL)[0]
+    assert chip_smoke.close(hist, hist_e, chip_smoke.STAR_HIST_TOL)[0]
+    faults = chip_smoke.star_fwd_faults(torch, star,
+                                        star_cuda.fwd_plan(387, 1024), args,
+                                        loss_e, hist_e)
+    assert len(faults) == 2
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["K4", "K8b"])
 def test_lattice_bwd_kernels_with_rows_too_wide_to_stage(cuda, kernel):
     """30,000 classes: the plan writes the class sums straight to the
@@ -1495,6 +1546,85 @@ def test_decode_kernel_matches_plain(cuda, B, S, H, D, dtype, with_starts):
                                    rtol=tol)
 
 
+def _k11_inputs(device, B, S, E, dtype, starts, seed):
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn((B, 3 * E), generator=g).to(device, dtype)
+    q, kn, vn = qkv.split(E, dim=-1)              # strided rows
+    kc = torch.randn((B, S, E), generator=g).to(device, dtype)
+    vc = torch.randn((B, S, E), generator=g).to(device, dtype)
+    st = torch.randint(0, 16, (B,), generator=g).to(device) if starts \
+        else None
+    return q, kn, vn, kc, vc, st
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [0, 96, 159, 1000, 3000])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 3])
+def test_decode_kernel_at_the_fill_levels(cuda, L, D, dtype, B):
+    """K11 at hat's fill levels (96, 159), GPT-2 small's longest (1000)
+    and K11's 10 MiB edge (3000 of 3412 rows), the first token (0): B=3
+    with left-pad starts, B=1 without (where the plan takes a cluster);
+    the caches bit for bit, y within the module's tolerances (bf16: also
+    K11_REL of the largest |y|), the same bits on a second call, one
+    kernel a call."""
+    E = 768 if dtype == torch.bfloat16 else 384    # the 10 MiB at S=3412
+    H = E // D
+    S = 3412 if L == 3000 else 1024 if L == 1000 else 256
+    q, kn, vn, kc, vc, starts = _k11_inputs(cuda, B, S, E, dtype,
+                                            B > 1 and L > 0, B + L + D)
+    k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    n0 = decode_attn_cuda.k11_kernel_launches()
+    y = decode_attn_cuda.decode_attn_cuda(q, kn, vn, k1, v1, L, starts,
+                                          n_head=H)
+    torch.cuda.synchronize()
+    assert decode_attn_cuda.k11_kernel_launches() == n0 + 1
+    y_e = decode_attn.decode_attend(q, kn, vn, k2, v2, L, starts, n_head=H)
+    assert torch.equal(k1, k2) and torch.equal(v1, v2)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, y_e, atol=1e-5, rtol=1e-5)
+    else:
+        torch.testing.assert_close(y.float(), y_e.float(),
+                                   **chip_smoke.DECODE_TOL)
+        assert chip_smoke.k11_rel(y, y_e) <= chip_smoke.K11_REL
+    assert torch.equal(y, decode_attn_cuda.decode_attn_cuda(
+        q, kn, vn, k1, v1, L, starts, n_head=H))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L", [(1, 1000), (1, 3000), (32, 96)])
+def test_decode_kernel_planted_faults(cuda, B, L):
+    """Each row's first step of rows left out (K11 itself, starts raised
+    by a step) and, where the plan takes a cluster, the peers' (max, sum)
+    ignored (chip_smoke.k11_emulate on the same inputs): each reads past
+    K11_REL, which the sound kernel reads under."""
+    E, H = 768, 12
+    S = 3412 if L == 3000 else 1024 if L == 1000 else 256
+    q, kn, vn, kc, vc, starts = _k11_inputs(cuda, B, S, E, torch.bfloat16,
+                                            B > 1, B + L)
+    y_e = decode_attn.decode_attend(q, kn, vn, kc.clone(), vc.clone(), L,
+                                    starts, n_head=H)
+    k1, v1 = kc.clone(), vc.clone()
+    y = decode_attn_cuda.decode_attn_cuda(q, kn, vn, k1, v1, L, starts,
+                                          n_head=H)
+    assert chip_smoke.k11_rel(y, y_e) <= chip_smoke.K11_REL
+    step = decode_attn_cuda.step_rows(64, 2)
+    first = starts.long() if starts is not None else \
+        torch.zeros(B, dtype=torch.long, device=cuda)
+    skipped = decode_attn_cuda.decode_attn_cuda(q, kn, vn, k1, v1, L,
+                                                first + step, n_head=H)
+    assert chip_smoke.k11_rel(skipped, y_e) > chip_smoke.K11_REL
+    plan = decode_attn_cuda.plan(B, H, L, 64, 2,
+                                 decode_attn_cuda.multiprocessors(cuda))
+    assert (plan.cluster > 1) == (B == 1)
+    if plan.cluster > 1:
+        bad = chip_smoke.k11_emulate(q, kn, vn, kc.clone(), vc.clone(), L,
+                                     starts, H, plan.cluster, step,
+                                     "peers ignored")
+        assert chip_smoke.k11_rel(bad, y_e) > chip_smoke.K11_REL
+
+
 @pytest.mark.cuda
 def test_decode_kernel_refuses_a_k12_sized_cache(cuda):
     """A 12 MiB (bf16 k and v) row: K11 raises and names K12, the route
@@ -1884,5 +2014,33 @@ def test_kernel_sources_hash_tracks_every_source():
             "star_fwd.cu", "star_bwd.cu", "joint_lse.cu",
             "joint_lse_bwd.cu", "flash_fwd.cu", "flash_bwd.cu",
             "fused_ce.cu", "decode_attn.cu", "q8_matmul.cu", "mma.cuh",
-            "lattice_bwd.cuh", "sm90.cuh"} <= names
+            "lattice.cuh", "lattice_bwd.cuh", "sm90.cuh"} <= names
     assert len(kernels.sources_hash()) == 64
+
+
+def test_trace_phases_builds_a_library_of_its_own(monkeypatch):
+    """kernels.trace_phases: -DHL_PHASES in the flags (and so in the
+    sources hash), a build directory beside the plain one, and the entry
+    points that copy the stamps out bound, each defined in csrc only under
+    HL_PHASES; refused once the plain library is loaded."""
+    for name in ("NVCC_FLAGS", "_SIGNATURES"):
+        monkeypatch.setattr(kernels, name, copy.copy(getattr(kernels, name)))
+    for name in ("BUILD", "LIB", "_lib"):
+        monkeypatch.setattr(kernels, name, getattr(kernels, name))
+    monkeypatch.setattr(kernels, "_lib", None)
+    plain = kernels.sources_hash()
+    kernels.trace_phases()
+    kernels.trace_phases()
+    assert kernels.NVCC_FLAGS.count("-DHL_PHASES") == 1
+    assert kernels.BUILD.name == "haloop_tpu_torch_phases"
+    assert kernels.LIB.parent == kernels.BUILD
+    assert kernels.sources_hash() != plain
+    src = "".join(p.read_text() for p in kernels._sources())
+    for name in kernels.PHASE_ENTRIES:
+        assert kernels._SIGNATURES[name] == [ctypes.c_void_p]
+        at = src.index(f'extern "C" int {name}(void* out)')
+        assert src.rindex("#ifdef HL_PHASES", 0, at) > \
+            src.rfind("#endif", 0, at)
+    monkeypatch.setattr(kernels, "_lib", object())
+    with pytest.raises(RuntimeError, match="plain library"):
+        kernels.trace_phases()

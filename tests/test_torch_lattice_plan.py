@@ -1,11 +1,13 @@
-"""The launch plan of the lattice backward kernels K4 and K8b
-(``haloop_tpu_torch/ops/lattice_cuda.py``, through ``ops/ctc_cuda.plan``
-and ``ops/star_cuda.plan``) on the CPU: every state owned by exactly one
-sweep lane, every stencil neighbour found where the kernels read it (a
-register of the lane, the next or previous lane's by shuffle, a warp's
-edge through shared memory, or the pad past the lattice), the rings and
-class lists within the block's shared memory, the same plan on every
-call, and ValueError just past the limits. Pure Python: no card.
+"""The launch plans of the lattice kernels on ``csrc/lattice.cuh``'s
+skeleton (``haloop_tpu_torch/ops/lattice_cuda.py``): the backwards K4
+and K8b (through ``ops/ctc_cuda.plan`` and ``ops/star_cuda.plan``) and
+the forward K8a (``ops/star_cuda.fwd_plan``), on the CPU: every state
+owned by exactly one sweep lane, every stencil neighbour found where the
+kernels read it (a register of the lane, a neighbouring lane's by
+shuffle, a warp's edge through shared memory, the start lane before the
+lattice or the pad past it), the rings and class lists within the
+block's shared memory, the same plan on every call, and ValueError just
+past the limits. Pure Python: no card.
 """
 
 import pytest
@@ -128,3 +130,83 @@ def test_plans_stage_the_rows_while_they_fit_and_raise_past_the_lists():
     assert (p.frames, p.depth, p.dense) == (1, 2, False)
     with pytest.raises(ValueError, match="does not fit in shared memory"):
         ctc_cuda.plan(193, direct + 16)
+
+
+# ------------------------------------------- the forward K8a (forward_plan)
+
+def _fwd_source(p, s, d):
+    """Where K8a's lane owning state s reads its neighbour s + d, as
+    csrc/star_fwd.cu does: ("own" | "shuffle" | "edge", lane, register),
+    or ("start",) for state -1 (the start lane). A lane reads the
+    previous lane's last register only."""
+    K, lane = p.per_lane, s // p.per_lane
+    j = s % K + d
+    if 0 <= j < K:
+        return ("own", lane, j)
+    t = s + d
+    if t < 0:
+        return ("start",)
+    other, reg = divmod(t, K)
+    assert other == lane - 1 and reg == K - 1, "only the last register"
+    same_warp = other // 32 == lane // 32
+    return ("shuffle" if same_warp else "edge", other, reg)
+
+
+def _fwd_offsets(s):
+    """The stencil's reach into state s (a blank s-1; a star s-1, s+1; a
+    label s-1 .. s-4)."""
+    return {0: (-1,), 1: (-1, 1), 2: (-1,), 3: (-3, -2, -1, -4)}[s % 4]
+
+
+@pytest.mark.parametrize("C", CLASSES)
+@pytest.mark.parametrize("S", STATES)
+def test_forward_plan_owns_every_state_once_and_fits(S, C):
+    if S > STAR_MAX:
+        with pytest.raises(ValueError, match="lattice states"):
+            star_cuda.fwd_plan(S, C)
+        return
+    p = star_cuda.fwd_plan(S, C)
+    K = p.per_lane
+    assert K in lattice_cuda.FWD_K and K % 4 == 0
+    owners = [divmod(s, K) for s in range(S)]
+    assert len(set(owners)) == S
+    assert all(0 <= lane < p.lanes for lane, _ in owners)
+    assert 32 * (p.sweep_warps - 1) < -(-S // K) <= p.lanes
+    assert p.sweep_warps <= lattice_cuda.sweep_cap(K)
+    for s in range(S):
+        for d in _fwd_offsets(s):
+            src = _fwd_source(p, s, d)
+            if src == ("start",):
+                assert s + d == -1
+            else:
+                assert src[1] * K + src[2] == s + d
+    assert p.smem == lattice_cuda.fwd_smem_bytes(
+        S, K, p.sweep_warps, p.frames, p.depth) <= lattice_cuda.SMEM_LIMIT
+    assert (p.frames, p.depth) in lattice_cuda.RINGS
+    assert p.threads == 32 * (p.sweep_warps + p.loader_warps) <= \
+        32 * lattice_cuda.fwd_max_warps(K)
+    assert star_cuda.fwd_plan(S, C) is p
+
+
+def test_forward_plans_at_the_train_shape():
+    """lstm:512 --star-penalty's lattice (S = 387): 4 states a lane over a
+    warpgroup, 2 loader warps and a ring of 4 slots of 4 frames; up to
+    1,024 states 4 a lane, then 8."""
+    p = star_cuda.fwd_plan(387, 1024)
+    assert (p.per_lane, p.sweep_warps, p.loader_warps, p.frames,
+            p.depth) == (4, 4, 2, 4, 4)
+    assert star_cuda.fwd_plan(1023, 1024).per_lane == 4
+    assert star_cuda.fwd_plan(1027, 1024).per_lane == 8
+
+
+def test_forward_plans_take_r3s_range_and_raise_past_it():
+    """S = 1027 and 4091 (U = 1022, the longest the Star-CTC kernels
+    take) plan with 8 states a lane over up to 16 sweep warps, the latter
+    with the smaller ring; U = 1023 raises."""
+    p = star_cuda.fwd_plan(1027, 1024)
+    assert (p.per_lane, p.sweep_warps) == (8, 5)
+    p = star_cuda.fwd_plan(4091, 1024)
+    assert (p.per_lane, p.sweep_warps, p.frames, p.depth) == (8, 16, 4, 2)
+    assert p.threads == 32 * 18
+    with pytest.raises(ValueError, match="4095 lattice states"):
+        star_cuda.fwd_plan(4095, 1024)

@@ -122,6 +122,34 @@ def test_star_ctc_loss_and_grads_match_pallas(penalty, kind):
         assert got[-1].item() > 1e8
 
 
+@pytest.mark.parametrize("penalty", [0.0, -0.5, -2.0])
+@pytest.mark.parametrize("kind", ["ragged", "full", "infeasible"])
+def test_star_forward_history_matches_pallas(penalty, kind):
+    """K8a's plain version, ``star_forward_history``: its loss and its
+    alpha history (N, T, 4U+3), the lattice frozen past each item's
+    length, against the JAX package's forward kernel in interpret mode
+    (``_lattice_fwd``: its history's state lanes PAD .. PAD + S), within
+    TOL; the history is the forward's only product the backward reads."""
+    lp, tg, il, tl = _data(T=19, N=3, V=9, S=3, seed=2,
+                           full=kind == "full",
+                           infeasible=kind == "infeasible")
+    star_lp, star_targets = JS.intersperse_stars(jnp.asarray(lp),
+                                                 jnp.asarray(tg))
+    want, res = JSP._lattice_fwd(star_lp, star_targets, jnp.asarray(il),
+                                 jnp.asarray(tl), penalty, True)
+    T, N = lp.shape[:2]
+    S = 4 * tg.shape[1] + 3
+    want_hist = np.asarray(res[3])[:N, :T, JSP.PAD:JSP.PAD + S]
+    loss, hist = TS.star_forward_history(
+        torch.from_numpy(np.array(star_lp)),
+        torch.from_numpy(np.array(star_targets)), torch.from_numpy(il),
+        torch.from_numpy(tl), penalty)
+    np.testing.assert_allclose(loss.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(hist.numpy(), want_hist, **TOL)
+    for n, length in enumerate(il):
+        assert (hist[n, max(length, 1) - 1:] == hist[n, -1]).all()
+
+
 def test_star_ctc_loss_and_grads_match_pallas_at_long_targets():
     """R3: a lattice of 1203 states (U = 300), past the card kernels' old
     1019, through the StarCTCLoss Function on CPU tensors against the JAX
