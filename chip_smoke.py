@@ -14,6 +14,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      the GPT phases' random checkpoints while the kernel phases run
   2. kernel K1 (LSTM recurrence) against the plain lstm_scan on the card
   3. kernel K3 (CTC forward lattice) against the plain ctc_forward_score
+     and ctc_forward_history: its plan, the same bits twice, cycles a
+     frame, and two planted faults that must read beyond CTC_TOL /
+     CTC_HIST_TOL (the skips dropped that cross the sweep's warp edges
+     and lane edges)
   4. the serving slice through its entry point: a random lstm:512
      checkpoint, ``hac --init ckpt --arch lstm:512 --vocab 512 --test
      head:sinusoids0`` (kernel launch counts reset just before, read just
@@ -42,9 +46,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      the plain path, train utt/s, a profiler breakdown), and lstm-tiny's
      loss falling below a third in 30 steps.
   8. kernels K9a/K9b (RNN-T joint logsumexp, forward and backward)
-     against the plain pairwise_lse / pairwise_lse_grad at
-     rnn-transducer:lstm:512's joint (16, 301, 25, 512); K1 and K2 at its
-     widths (phases 2 and 5: H=1024 encoder, H=512 prediction net)
+     against the plain pairwise_lse / pairwise_lse_grad (K9a also against
+     the materialized joint) at rnn-transducer:lstm:512's joint (16, 301,
+     25, 512), with a 16k vocabulary (V = 16384), on disjoint peaks that
+     take K9a's fix-up and with every cell marked: one launch a call, the
+     same bits twice, K9a's two planted faults (the fix-up skipped, one
+     stage of V left out) beyond JOINT_TOL; K1 and K2 at its widths
+     (phases 2 and 5: H=1024 encoder, H=512 prediction net)
   9. kernels K8a/K8b (Star-CTC lattice, forward and backward) against the
      plain star_forward_history / star_grad at lstm:512's train shapes;
      each one's same bits on more runs and its planted faults (K8a: the
@@ -57,7 +65,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      one train step and one transcription batch through ``loop.System``
      (counts reset just before each, read just after), kernel path
      against the plain path, train and eval utt/s, peak memory, a profile
-     of the train step
+     of the train step; then one train step of rnn-transducer:lstm:16384
+     at batch 4 (K9a and K9b once each, the kernel path against the
+     plain path)
  11. lstm:512 ``--star-penalty -0.5``: one train step at batch 48 x 12 s,
      the same checks (and K8a's and K8b's plans), train utt/s
  11b. --rnn-q8 on every acoustic path (counts reset just before each,
@@ -197,6 +207,10 @@ ROOT = Path(__file__).resolve().parent
 LSTM_TOL = {"bfloat16": dict(atol=2e-2, rtol=2e-2, mean=2e-3),
             "float32": dict(atol=1e-4, rtol=1e-4, mean=1e-4)}
 CTC_REL_TOL = 1e-4     # K3, feasible items: fp32 lattice, other exp/log order
+# K3 against its plain version with the kernel's numerics
+# (ctc_forward_history: loss, history), as K8a's below
+CTC_TOL = dict(atol=1e-4, rtol=1e-5)
+CTC_HIST_TOL = dict(atol=1e-3, rtol=1e-5)
 # K4 (and K8b): the JAX package's bound for its kernel's grads
 # (tests/test_lattice_kernels.py:34); the kernels sum each class's states
 # in another order than the plain versions (a fixed one: the same bits on
@@ -233,6 +247,9 @@ SLICE_REL_TOL = 2e-3
 # K9a: one fp32 logsumexp in another order; K9b: dg sums 301 frames in
 # another order (tests/test_torch_kernels.py)
 JOINT_TOL = dict(atol=1e-5, rtol=1e-5)
+# K9a's joints beside rnn-transducer:lstm:512's (16, 301, 25, 512): a 16k
+# sentencepiece vocabulary (V = 16384, past the parent kernel's 6,456)
+JOINT_V16K = (16, 301, 25, 16384)
 JOINT_DG_TOL = dict(atol=1e-4, rtol=1e-5)
 # K8a against its plain version with the kernel's numerics (loss, history)
 STAR_TOL = dict(atol=1e-4, rtol=1e-5)
@@ -369,16 +386,17 @@ SPIN_CYCLES = 2_000_000
 # them: K1 4 gate sums, 3 sigmoids and 2 tanh (2 each), the c and h
 # updates (4); K2 the 5 delta products and sums of each gate (~25); a
 # lattice state 3 exp, 1 log and ~8 adds (12), its backward 16; a joint
-# cell of K9a f+g, max, f+g-m, exp and the sum (6), of K9b f+g-lse, exp,
-# the product and two sums (6); a star state's 6-point stencil forward
-# (~20), its backward (six-term logsumexp, the clipped exp, ~28)
+# cell of K9b f+g-lse, exp, the product and two sums (6); a star state's
+# 6-point stencil forward (~20), its backward (six-term logsumexp, the
+# clipped exp, ~28). K9a's function needs no work per joint cell but the
+# factored form's (``k9a_bound``)
 K1_ELEM, K2_ELEM, K3_ELEM, K4_ELEM = 20, 25, 12, 16
 # the int8 modes add, per cell and step: K1-q8 h * 127 and its rounding,
 # each gate's int32-to-float and scale (10); K2-q8 each gate's product
 # with s, |.|, max, division by m, * 127 and rounding, and the
 # dequantization of dh (26)
 K1Q8_ELEM, K2Q8_ELEM = K1_ELEM + 10, K2_ELEM + 26
-K9A_ELEM, K9B_ELEM, K8A_ELEM, K8B_ELEM = 6, 6, 20, 28
+K9B_ELEM, K8A_ELEM, K8B_ELEM = 6, 20, 28
 
 
 def check(ok, msg):
@@ -472,6 +490,14 @@ def k3_bound(input_lengths, N, T, S, U, history):
     nbytes = 4 * (cells + N * U + 2 * N + N) + \
         (4 * N * T * S if history else 0)
     return bound(nbytes, 0, K3_ELEM * cells)
+
+
+def k9a_bound(N, T, U1, V):
+    """K9a's least time: f and g read and lse written once; the factored
+    form's operations, an FMA (2) for each of the N T U1 V products and
+    one for each of the N (T + U1) V exponentials."""
+    return bound(4 * (N * T * V + N * U1 * V + N * T * U1), 0,
+                 2.0 * N * T * U1 * V + N * (T + U1) * V)
 
 
 def k4_bound(input_lengths, N, T, S, U, C):
@@ -823,32 +849,72 @@ def ctc_inputs(torch, dev):
                                 target_lengths)], feasible.to(dev)
 
 
+def ctc_fwd_faults(torch, ctc, plan, args, loss_e, hist_e):
+    """K3's edge faults, computed from its plain version
+    ctc_forward_history with the skip s-2 -> s dropped into the label
+    states whose s-2 the sweep reads from another lane (``edge_states(plan,
+    1)``: a lane's register 1, whose s-2 is the previous lane's last): at
+    the warps' edges (shared memory) and at a lane edge inside each warp (a
+    shuffle). -> {label: (max |d loss|, max |d hist|)}; each must read
+    beyond CTC_TOL or CTC_HIST_TOL."""
+    out = {}
+    for label, (mod, attr, edit) in ctc_faults(ctc, plan).items():
+        fn = getattr(mod, attr)
+        setattr(mod, attr, edit(fn))
+        try:
+            loss, hist = ctc.ctc_forward_history(*args)
+        finally:
+            setattr(mod, attr, fn)
+        ok_l, dl = close(loss, loss_e, CTC_TOL)
+        ok_h, dh = close(hist, hist_e, CTC_HIST_TOL)
+        print(f"K3 planted fault, {label}: max|dloss| {dl:.3e}, max|dhist| "
+              f"{dh:.3e}, beyond the limits: {not (ok_l and ok_h)}",
+              flush=True)
+        check(not (ok_l and ok_h), f"K3's planted fault ({label}) reads "
+                                   f"within CTC_TOL and CTC_HIST_TOL")
+        out[label] = (dl, dh)
+    return out
+
+
 def phase_ctc(torch, dev):
+    """K3 (with and without its history) against ctc_forward_score on the
+    feasible items and against ctc_forward_history; its plan, the same
+    bits twice, the planted edge faults; times and cycles a frame."""
     from haloop_tpu_torch.ops import ctc, ctc_cuda
     args, ok = ctc_inputs(torch, dev)
     log_probs, targets, input_lengths, target_lengths = args
     T, N, C = log_probs.shape
     U = targets.shape[1]
+    S = 2 * U + 1
+    plan = ctc_cuda.fwd_plan(S, C)
     loss = ctc_cuda.ctc_fwd_cuda(*args)
-    hist = torch.empty((N, T, 2 * U + 1), device=dev)
+    hist, hist2 = (torch.empty((N, T, S), device=dev) for _ in range(2))
     loss_h = ctc_cuda.ctc_fwd_cuda(*args, history=hist)
+    loss_h2 = ctc_cuda.ctc_fwd_cuda(*args, history=hist2)
     torch.cuda.synchronize()
     ref = ctc.ctc_forward_score(*args)
     bad = ~ok
     rel = ((loss - ref).abs() / ref.abs())[ok]
     max_abs = (loss - ref).abs()[ok].max().item()
-    print(f"K3 ctc N={N} T={T} C={C} S'={2 * U + 1}: max rel|dloss|="
-          f"{rel.max().item():.3e} max|dloss|={max_abs:.3e} on feasible "
-          f"items (tol rel {CTC_REL_TOL}); infeasible loss "
-          f"{loss[bad].tolist()} (plain {ref[bad].tolist()})", flush=True)
+    loss_e, hist_e = ctc.ctc_forward_history(*args)
+    ok_l, err_l = close(loss, loss_e, CTC_TOL)
+    ok_h, err_h = close(hist, hist_e, CTC_HIST_TOL)
+    same = torch.equal(loss_h, loss_h2) and torch.equal(hist, hist2)
+    print(f"K3 ctc N={N} T={T} C={C} S'={S}, plan {tuple(plan)}: max "
+          f"rel|dloss|={rel.max().item():.3e} max|dloss|={max_abs:.3e} on "
+          f"feasible items (tol rel {CTC_REL_TOL}); against "
+          f"ctc_forward_history max|dloss|={err_l:.3e} max|dhist|="
+          f"{err_h:.3e} (tol {CTC_TOL}, history {CTC_HIST_TOL}); infeasible "
+          f"loss {loss[bad].tolist()} (plain {ref[bad].tolist()}); the same "
+          f"bits twice: {same}", flush=True)
     check(bool(torch.isfinite(loss).all()), "K3 loss not finite")
     check(rel.max().item() <= CTC_REL_TOL, "K3 disagrees with the plain CTC")
     check(bool((loss[bad] >= 1e8).all()), "K3 infeasible loss is not large")
     check(torch.equal(loss, loss_h) and bool(torch.isfinite(hist).all()),
           "K3 with the alpha history differs from K3 without")
-    loss_e, hist_e = ctc.ctc_forward_history(*args)
-    check(bool(torch.allclose(hist, hist_e, rtol=1e-5, atol=1e-3)),
-          "K3's history differs from the plain ctc_forward_history")
+    check(ok_l and ok_h, "K3 disagrees with the plain ctc_forward_history")
+    check(same, "K3 gives other bits on another run")
+    faults = ctc_fwd_faults(torch, ctc, plan, args, loss_e, hist_e)
     reports = {}
     for history in (False, True):
         h = hist if history else None
@@ -859,13 +925,16 @@ def phase_ctc(torch, dev):
         lib_ms = cuda_ms(lambda: torch.nn.functional.ctc_loss(
             log_probs, targets, input_lengths, target_lengths,
             reduction="none"))
-        b_ms, b_by = k3_bound(input_lengths, N, T, 2 * U + 1, U, history)
+        b_ms, b_by = k3_bound(input_lengths, N, T, S, U, history)
+        cyc, mhz = cycles_a_frame(ms, input_lengths, T)
         print(f"K3 ctc N={N} T={T} history={history}: kernel {ms:.3f} ms, "
               f"plain {plain_ms:.3f} ms, F.ctc_loss {lib_ms:.3f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by})", flush=True)
+              f"{b_ms:.4f} ms ({b_by}); {cyc:.0f} cycles a frame of the "
+              f"longest item at {mhz:.0f} MHz", flush=True)
         reports[history] = dict(max_abs_err=max_abs, ms=ms,
                                 plain_ms=plain_ms, bound_ms=b_ms,
-                                bound_by=b_by, library_ms=lib_ms)
+                                bound_by=b_by, library_ms=lib_ms,
+                                plan=list(plan), planted_faults=faults)
     return reports
 
 
@@ -1583,69 +1652,147 @@ def close(got, want, tol):
         err.max().item()
 
 
-def phase_joint(torch, dev):
-    """K9a/K9b against pairwise_lse / pairwise_lse_grad at the joint of
-    rnn-transducer:lstm:512 (N=16, T'=301, U+1=25, V=512); frames past
-    each item's length carry dlse = 0, as the transducer loss gives."""
-    from haloop_tpu_torch.ops import joint, joint_cuda
-    N, T, U1, V = 16, 301, 25, 512
-    gen = torch.Generator().manual_seed(9)
-    f = (torch.randn((N, T, V), generator=gen) * 3).to(dev)
-    g = (torch.randn((N, U1, V), generator=gen) * 3).to(dev)
+def joint_inputs(torch, dev, N, T, U1, V, seed, peaks=None):
+    """f (N, T, V), g (N, U1, V) of N(0, 9) and dlse (N, T, U1) with the
+    frames past each item's length at 0 (as the transducer loss gives),
+    from a seed. ``peaks``: f, g N(0, 1) with "disjoint" peaks, f at +100
+    on frame 7's v = 3 and g at +100 on row 2's v = V - 5 in every item
+    (the factored form's sum underflows at the cells (n, 7, 2) only), or
+    "every" row of f at +200 on v = 0 and of g on v = 1 (every cell)."""
+    gen = torch.Generator().manual_seed(seed)
+    scale = 3.0 if peaks is None else 1.0
+    f = torch.randn((N, T, V), generator=gen) * scale
+    g = torch.randn((N, U1, V), generator=gen) * scale
+    if peaks == "disjoint":
+        f[:, 7, 3], g[:, 2, V - 5] = 100.0, 100.0
+    elif peaks == "every":
+        f[..., 0], g[..., 1] = 200.0, 200.0
     lens = torch.randint(T // 2, T + 1, (N,), generator=gen)
     dlse = torch.randn((N, T, U1), generator=gen)
     dlse[torch.arange(T)[None, :] >= lens[:, None]] = 0.0
-    dlse = dlse.to(dev)
+    return f.to(dev), g.to(dev), dlse.to(dev)
 
+
+def joint_faults(torch, joint, f, g, want):
+    """K9a's planted faults, emulated from the plain factored
+    pairwise_lse on an input with marked cells: the fix-up skipped (mf +
+    mg + log s at every cell), and one stage of V left out (columns 64 ..
+    127, the kernel's second stage, at -inf in f). -> {label: max |fault -
+    want|}; each must read beyond JOINT_TOL."""
+    f, g = f.float(), g.float()
+    mf, mg, s = joint._factored(f, g)
+    left_out = f.clone()
+    left_out[..., 64:128] = -math.inf
+    out = {}
+    for label, fault in (
+            ("the fix-up skipped", mf[..., None] + mg[:, None] +
+             torch.log(s)),
+            ("columns 64..127 left out", joint.pairwise_lse(left_out, g))):
+        ok, err = close(fault, want, JOINT_TOL)
+        print(f"K9a planted fault, {label}: max|d| {err:.3e}, beyond "
+              f"{JOINT_TOL}: {not ok}", flush=True)
+        check(not ok, f"K9a's planted fault ({label}) reads within "
+                      f"JOINT_TOL")
+        out[label] = err
+    return out
+
+
+def phase_joint(torch, dev):
+    """K9a/K9b against pairwise_lse / pairwise_lse_grad and K9a against the
+    materialized joint: at rnn-transducer:lstm:512's joint (N=16, T'=301,
+    U+1=25, V=512), with a 16k vocabulary (JOINT_V16K), on the disjoint
+    peaks (K9a's fix-up taken) and with every cell marked; one launch a
+    call, the same bits twice, K9a's planted faults; times (every cell
+    marked: the fix-up's cost, kept out of the main row)."""
+    from haloop_tpu_torch.ops import joint, joint_cuda
+    cases = (("V=512", (16, 301, 25, 512), None, 9),
+             (f"V={JOINT_V16K[3]}", JOINT_V16K, None, 10),
+             ("disjoint peaks", (16, 301, 25, 512), "disjoint", 11),
+             ("every cell marked", (16, 301, 25, 512), "every", 12))
+    fwd, bwd = {}, {}
+    for label, (N, T, U1, V), peaks, seed in cases:
+        f, g, dlse = joint_inputs(torch, dev, N, T, U1, V, seed, peaks)
+        n0, b0 = joint_cuda.launches, joint_cuda.bwd_launches
+        lse = joint_cuda.lse_fwd_cuda(f, g)
+        lse2 = joint_cuda.lse_fwd_cuda(f, g)
+        df, dg = joint_cuda.lse_bwd_cuda(f, g, lse, dlse)
+        torch.cuda.synchronize()
+        once = (joint_cuda.launches, joint_cuda.bwd_launches) == \
+            (n0 + 2, b0 + 1)
+        want = joint.pairwise_lse(f, g)
+        ok, err = close(lse, want, JOINT_TOL)
+        ok_ref, err_ref = close(lse, joint.pairwise_lse_reference(f, g),
+                                JOINT_TOL)
+        marked = int(joint.marks(f, g).sum())
+        df_e, dg_e = joint.pairwise_lse_grad(f, g, lse, dlse)
+        ok_f, err_f = close(df, df_e, JOINT_TOL)
+        ok_g, err_g = close(dg, dg_e, JOINT_DG_TOL)
+        padded = ~dlse.any(dim=2)                  # (N, T) rows past a length
+        same = torch.equal(lse, lse2) and torch.equal(
+            dg, joint_cuda.lse_bwd_cuda(f, g, lse, dlse)[1])
+        plan = joint_cuda.plan(N, T, U1, V)
+        print(f"K9a joint_lse {label} N={N} T={T} U+1={U1} V={V}, plan "
+              f"{tuple(plan)}: {marked} marked cells; max|dlse|={err:.3e} "
+              f"(materialized joint {err_ref:.3e}; tol {JOINT_TOL}); K9b "
+              f"max|ddf|={err_f:.3e} max|ddg|={err_g:.3e} (tol {JOINT_TOL}, "
+              f"dg {JOINT_DG_TOL}); one launch a call: {once}; the same "
+              f"bits twice: {same}", flush=True)
+        check(ok and ok_ref, f"K9a disagrees with the plain pairwise_lse "
+                             f"({label})")
+        check(ok_f and ok_g, f"K9b disagrees with the plain "
+                             f"pairwise_lse_grad ({label})")
+        check(not df[padded].any(), "K9b wrote df on frames with dlse = 0")
+        check(once, f"K9a or K9b did not launch once a call ({label})")
+        check(same, f"K9a or K9b gives other bits on another run ({label})")
+        check((marked > 0) == (peaks is not None),
+              f"the marked cells of {label}: {marked}")
+        report = dict(max_abs_err=err, ms=cuda_ms(
+            lambda: joint_cuda.lse_fwd_cuda(f, g)), marked=marked,
+                      plan=list(plan))
+        report["bound_ms"], report["bound_by"] = k9a_bound(N, T, U1, V)
+        if peaks == "disjoint":
+            report["planted_faults"] = joint_faults(torch, joint, f, g, want)
+        if peaks is None:
+            report["plain_ms"] = cuda_ms(lambda: joint.pairwise_lse(f, g))
+            report["library_ms"] = cuda_ms(
+                lambda: torch.logsumexp(f[:, :, None] + g[:, None], -1))
+            print(f"K9a joint_lse {label}: kernel {report['ms']:.4f} ms, plain "
+                  f"{report['plain_ms']:.4f} ms, torch.logsumexp of the "
+                  f"materialized joint {report['library_ms']:.4f} ms, bound "
+                  f"{report['bound_ms']:.4f} ms ({report['bound_by']})",
+                  flush=True)
+            live = int((dlse != 0).sum()) * V      # the cells K9b must weigh
+            b_ms, b_by = bound(4 * (2 * N * T * V + 2 * N * U1 * V +
+                                    2 * N * T * U1), 0, K9B_ELEM * live)
+            bwd[label] = dict(max_abs_err=max(err_f, err_g), ms=cuda_ms(
+                lambda: joint_cuda.lse_bwd_cuda(f, g, lse, dlse)),
+                              bound_ms=b_ms, bound_by=b_by)
+        else:
+            print(f"K9a joint_lse {label}: kernel {report['ms']:.4f} ms",
+                  flush=True)
+        fwd[label] = report
+        del f, g, dlse, lse, lse2, df, dg, want, df_e, dg_e
+        torch.cuda.empty_cache()
+
+    # the main row, rnn-transducer:lstm:512's joint; the rest by shape
+    reports = {"fwd": dict(fwd.pop("V=512"), by_shape=fwd)}
+    N, T, U1, V = 16, 301, 25, 512
+    f, g, dlse = joint_inputs(torch, dev, N, T, U1, V, 9)
     lse = joint_cuda.lse_fwd_cuda(f, g)
-    df, dg = joint_cuda.lse_bwd_cuda(f, g, lse, dlse)
-    torch.cuda.synchronize()
-    ok, err = close(lse, joint.pairwise_lse(f, g), JOINT_TOL)
-    ok_ref, err_ref = close(lse, joint.pairwise_lse_reference(f, g),
-                            JOINT_TOL)
-    df_e, dg_e = joint.pairwise_lse_grad(f, g, lse, dlse)
-    ok_f, err_f = close(df, df_e, JOINT_TOL)
-    ok_g, err_g = close(dg, dg_e, JOINT_DG_TOL)
-    padded = ~dlse.any(dim=2)                      # (N, T) rows past a length
-    print(f"K9a joint_lse N={N} T={T} U+1={U1} V={V}: max|dlse|={err:.3e} "
-          f"(materialized joint {err_ref:.3e}; tol {JOINT_TOL}); K9b "
-          f"max|ddf|={err_f:.3e} max|ddg|={err_g:.3e} (tol {JOINT_TOL}, "
-          f"dg {JOINT_DG_TOL})", flush=True)
-    check(ok and ok_ref, "K9a disagrees with the plain pairwise_lse")
-    check(ok_f and ok_g, "K9b disagrees with the plain pairwise_lse_grad")
-    check(not df[padded].any(), "K9b wrote df on frames with dlse = 0")
-    check(torch.equal(dg, joint_cuda.lse_bwd_cuda(f, g, lse, dlse)[1]),
-          "K9b's dg differs between two runs")
-
-    cells = N * T * U1 * V
-    live = int((dlse != 0).sum()) * V          # the cells K9b must weigh
-    reports = {}
-    fwd_ms = cuda_ms(lambda: joint_cuda.lse_fwd_cuda(f, g))
-    fwd_plain = cuda_ms(lambda: joint.pairwise_lse(f, g))
-    fwd_lib = cuda_ms(lambda: torch.logsumexp(f[:, :, None] + g[:, None],
-                                              -1))
-    b_ms, b_by = bound(4 * (N * T * V + N * U1 * V + N * T * U1), 0,
-                       K9A_ELEM * cells)
-    print(f"K9a joint_lse: kernel {fwd_ms:.3f} ms, plain {fwd_plain:.3f} ms, "
-          f"torch.logsumexp of the materialized joint {fwd_lib:.3f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by})", flush=True)
-    reports["fwd"] = dict(max_abs_err=err, ms=fwd_ms, plain_ms=fwd_plain,
-                          bound_ms=b_ms, bound_by=b_by, library_ms=fwd_lib)
-    bwd_ms = cuda_ms(lambda: joint_cuda.lse_bwd_cuda(f, g, lse, dlse))
-    bwd_plain = cuda_ms(lambda: joint.pairwise_lse_grad(f, g, lse, dlse))
+    main = bwd.pop("V=512")
+    main["plain_ms"] = cuda_ms(lambda: joint.pairwise_lse_grad(f, g, lse,
+                                                               dlse))
     fr, gr = f.clone().requires_grad_(True), g.clone().requires_grad_(True)
     out = torch.logsumexp(fr[:, :, None] + gr[:, None], -1)
-    bwd_lib = cuda_ms(lambda: torch.autograd.grad(out, (fr, gr), dlse,
-                                                  retain_graph=True))
+    main["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        out, (fr, gr), dlse, retain_graph=True))
     del out
-    b_ms, b_by = bound(4 * (2 * N * T * V + 2 * N * U1 * V + 2 * N * T * U1),
-                       0, K9B_ELEM * live)
-    print(f"K9b joint_lse_bwd: kernel {bwd_ms:.3f} ms, plain {bwd_plain:.3f} "
-          f"ms, the materialized joint's logsumexp backward {bwd_lib:.3f} "
-          f"ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
-    reports["bwd"] = dict(max_abs_err=max(err_f, err_g), ms=bwd_ms,
-                          plain_ms=bwd_plain, bound_ms=b_ms, bound_by=b_by,
-                          library_ms=bwd_lib)
+    print(f"K9b joint_lse_bwd: kernel {main['ms']:.3f} ms, plain "
+          f"{main['plain_ms']:.3f} ms, the materialized joint's logsumexp "
+          f"backward {main['library_ms']:.3f} ms, bound "
+          f"{main['bound_ms']:.4f} ms ({main['bound_by']}); by shape "
+          f"{bwd}", flush=True)
+    reports["bwd"] = dict(main, by_shape=bwd)
     return reports
 
 
@@ -1861,7 +2008,7 @@ def phase_long_lattice(torch, dev):
     out["K3 rel"] = ((loss - loss_e).abs() / loss_e.abs()).max().item()
     out["K4"] = (got - want).abs().max().item()
     check(out["K3 rel"] <= CTC_REL_TOL and
-          bool(torch.allclose(hist, hist_e, rtol=1e-5, atol=1e-3)),
+          close(hist, hist_e, CTC_HIST_TOL)[0],
           "K3 at S' = 2049 disagrees with ctc_forward_history")
     check(bool(((got - want).abs() <= CTC_GRAD_TOL +
                 CTC_GRAD_TOL * want.abs()).all()),
@@ -1915,12 +2062,12 @@ def make_system(torch, dev, *flags):
     return loop.System(args, spec, params, make_vocab("512"), dev)
 
 
-def transducer_batch(system):
+def transducer_batch(system, B=16):
     """The JAX package's rnn-transducer:lstm:512 train shapes (bench.py):
-    16 random 13-dim feature sequences of 600-1200 frames (T'=301 at
+    B (16) random 13-dim feature sequences of 600-1200 frames (T'=301 at
     most), 12-24 labels of U=24, from a seed."""
     import numpy as np
-    B, T, U = 16, 1200, 24
+    T, U = 1200, 24
     rng = np.random.default_rng(0)
     inputs = rng.normal(size=(B, T, 13)).astype(np.float32)
     targets = rng.integers(4, 512, (B, U)).astype(np.int64)
@@ -1945,7 +2092,9 @@ def check_against_plain(torch, system, batch, what):
 
 def phase_transducer(torch, dev, card):
     """rnn-transducer:lstm:512 at full width: a train step and a
-    transcription batch, each with the counts reset just before it."""
+    transcription batch, each with the counts reset just before it; then
+    one train step of rnn-transducer:lstm:16384 (a 16k vocabulary) at
+    batch 4."""
     from haloop_tpu_torch.models import recognizer
     from haloop_tpu_torch.params import tree_map
     system = make_system(torch, dev, "--arch", "rnn-transducer:lstm:512")
@@ -2027,7 +2176,31 @@ def phase_transducer(torch, dev, card):
               f"({sec:.3f} ms per batch, median of 5; "
               f"{[round(t, 3) for t in times]}) peak memory {peak:.2f} GiB "
               f"on {card}", flush=True)
-    return train, serve
+    del system, batch
+    torch.cuda.empty_cache()
+    return train, serve, transducer_16k(torch, dev)
+
+
+def transducer_16k(torch, dev):
+    """One train step of rnn-transducer:lstm:16384 through loop.System at
+    batch 4 of the phase's frames (K9a at V = 16384, past the parent
+    kernel's vocabulary limit), the counts reset just before it: K9a and
+    K9b once each, a finite loss, the kernel path against the plain
+    path."""
+    system = make_system(torch, dev, "--arch", "rnn-transducer:lstm:16384")
+    batch = transducer_batch(system, B=4)
+    reset_counts()
+    loss, norm, bad = system.train_step(*batch)
+    torch.cuda.synchronize()
+    train = counts()
+    print(f"rnn-transducer:lstm:16384 train step, batch 4: loss {loss:.4f} "
+          f"encoder grad norm {norm:.4f}; launches {train}", flush=True)
+    check(not bad and math.isfinite(loss), "non-finite 16k transducer step")
+    check_counts("16k transducer train step", train,
+                 dict(lstm_fwd_residual=5, lstm_bwd=5, joint_lse=1,
+                      joint_lse_bwd=1))
+    check_against_plain(torch, system, batch, "16k transducer train step")
+    return train
 
 
 def phase_star_train(torch, dev, card):
@@ -4200,8 +4373,9 @@ def main():
         k6a, k6b, k5lse = timed(phase_flash_bwd, torch, dev)
         paths["serve"] = timed(phase_slice, torch, dev, tmp, card)
         paths["train"] = timed(phase_train, torch, dev, tmp, card)
-        paths["transducer_train"], paths["transducer_serve"] = \
-            timed(phase_transducer, torch, dev, card)
+        paths["transducer_train"], paths["transducer_serve"], \
+            paths["transducer_16k_train"] = timed(phase_transducer, torch,
+                                                  dev, card)
         paths["star_train"] = timed(phase_star_train, torch, dev, card)
         paths.update(timed(phase_rnn_q8, torch, dev, tmp, card))
         paths["transducer_entry"], paths["star_entry"] = timed(

@@ -42,14 +42,16 @@
 //   first label (s-4), which read the previous lane's last state by one
 //   __shfl_up_sync; the star's back edge s+1 is always the lane's own.
 //   Only a warp's last lane hands its last state to the next warp, through
-//   shared memory behind a named barrier of the sweep warps, once a frame.
-//   (2 states a lane over 7 warps, K4's stencil, read 11% slower at S =
-//   387: PERF.md.)
-// - Loader warps gather each frame's per-state emissions from the (T, N,
-//   2V) star log-probs into an mbarrier ring in shared memory by cp.async,
-//   `depth` slots of `frames` frames ahead (lattice.cuh fwd_load), so the
-//   (N, T, S) tensor the TPU path builds with a one-hot matmul never
-//   exists; the sweep meets the ring once a slot.
+//   shared memory, once a frame: behind a named barrier of the sweep warps,
+//   or from 8 states a lane on as a tagged word the next warp waits for
+//   (lattice.cuh fwd_sweep, K3's too). (2 states a lane over 7 warps, K4's
+//   stencil, read 11% slower at S = 387: PERF.md.)
+// - Loader warps gather each frame's emissions from the (T, N, 2V) star
+//   log-probs into an mbarrier ring in shared memory by cp.async, `depth`
+//   slots of `frames` frames ahead (lattice.cuh fwd_load): the odd states',
+//   and the blank's (every even state's) once. So the (N, T, S) tensor the
+//   TPU path builds with a one-hot matmul never exists; the sweep meets the
+//   ring once a slot.
 // - lse in log2 units, ex2 and lg2 of the special function unit.
 // - The history (N, T, S), when asked for, is written straight from the
 //   sweep's registers: a lane's K contiguous states as 16-byte stores where
@@ -67,7 +69,7 @@ namespace {
 using namespace hl::lat;
 using hl::ex2;
 
-constexpr float NEG = -1e9f;
+constexpr float NEG = LAT_NEG;
 constexpr float FILL = 2.f * NEG;    // a term that is not in the lattice
 
 __device__ __forceinline__ float lse2(float a, float b) {
@@ -91,36 +93,12 @@ __device__ __forceinline__ int clamp_class(int raw, int C2) {
   return min(max(raw, 0), C2 - 1);
 }
 
-// a lane's K states to p, those of them in the lattice (`valid`): 16-byte
-// stores where p is 16-byte aligned, 8-byte where it is 8-byte aligned
-// (either the same for every lane of a warp), else single ones
-template <int K>
-__device__ __forceinline__ void store_run(float* p, const float (&a)[K],
-                                          int valid) {
-  const uintptr_t x = reinterpret_cast<uintptr_t>(p);
-  if (valid >= K && (x & 15) == 0) {
-#pragma unroll
-    for (int j = 0; j < K; j += 4)
-      *reinterpret_cast<float4*>(p + j) =
-          make_float4(a[j], a[j + 1], a[j + 2], a[j + 3]);
-  } else if (valid >= K && (x & 7) == 0) {
-#pragma unroll
-    for (int j = 0; j < K; j += 2)
-      *reinterpret_cast<float2*>(p + j) = make_float2(a[j], a[j + 1]);
-  } else {
-#pragma unroll
-    for (int j = 0; j < K; ++j)
-      if (j < valid) p[j] = a[j];
-  }
-}
-
 template <int K>
 __device__ void sweep(const Fwd& L, char* sm, const int* st, float penalty,
                       int len, int ulen, int T, float* hist_n, float* loss) {
   static_assert(K % 4 == 0, "a state's type from its register");
-  const int ls = threadIdx.x, w = ls >> 5, lane = ls & 31;
+  const int ls = threadIdx.x;
   const int S = L.S;
-  float* edge = reinterpret_cast<float*>(sm + L.edge);
 
   float a[K];
   uint32_t same = 0;   // bit j: a label whose label repeats the one at s-4
@@ -131,66 +109,28 @@ __device__ void sweep(const Fwd& L, char* sm, const int* st, float penalty,
     if (s % 4 == 3 && s >= 4 && s < S && st[(s - 1) / 2] == st[(s - 5) / 2])
       same |= 1u << j;
   }
-  const int F = L.frames;
-  const bool ph_on = blockIdx.x == 0 && ls == 0;   // --phases stamps
-  for (int b = 0; b * F < len; ++b) {
-    const long long tw = hl::stamp();
-    fwd_enter(L, sm, b);
-    long long ring_wait = hl::stamp() - tw;
-    for (int f = 0; f < F && b * F + f < len; ++f) {
-      const int i = b * F + f;
-      const long long ts0 = hl::stamp();
-      const float* em = fwd_row(L, sm, b % L.depth, f);
-      float e[K];
+  fwd_sweep<K>(L, sm, len, T, hist_n, a,
+               [&](int, float prev, const float (&e)[K], float (&x)[K]) {
+    float v[K];
 #pragma unroll
-      for (int j = 0; j < K; ++j) e[j] = em[j * L.lanes + ls];
-      // state ls K - 1, the previous lane's last: across a warp's edge the
-      // previous warp's, before state 0 the start lane (0, then NEG)
-      const float start = i == 0 ? 0.f : NEG;
-      float prev = __shfl_up_sync(0xffffffffu, a[K - 1], 1);
-      if (lane == 0)
-        prev = w == 0 ? start
-                      : (i == 0 ? NEG : edge[((i - 1) & 1) * L.sweep + w - 1]);
-      float v[K];
-#pragma unroll
-      for (int j = 0; j < K; ++j) {
-        // (indices mod K: the branch not taken is a valid register too)
-        const float l1 = j > 0 ? a[(j + K - 1) % K] : prev;
-        if (j % 4 == 0) {
-          v[j] = lse2(l1, a[j]);
-        } else if (j % 4 == 1) {
-          v[j] = lse3(l1, a[j], a[(j + 1) % K]) + penalty;
-        } else if (j % 4 == 2) {
-          v[j] = lse2(l1, a[j]);
-        } else {
-          const float l4 = j >= 4 ? a[(j + K - 4) % K] : prev;
-          v[j] = lse4(a[(j + K - 3) % K], l1, a[(j + K - 2) % K],
-                      (same >> j) & 1 ? FILL : l4);
-        }
+    for (int j = 0; j < K; ++j) {
+      // (indices mod K: the branch not taken is a valid register too)
+      const float l1 = j > 0 ? x[(j + K - 1) % K] : prev;
+      if (j % 4 == 0) {
+        v[j] = lse2(l1, x[j]);
+      } else if (j % 4 == 1) {
+        v[j] = lse3(l1, x[j], x[(j + 1) % K]) + penalty;
+      } else if (j % 4 == 2) {
+        v[j] = lse2(l1, x[j]);
+      } else {
+        const float l4 = j >= 4 ? x[(j + K - 4) % K] : prev;
+        v[j] = lse4(x[(j + K - 3) % K], l1, x[(j + K - 2) % K],
+                    (same >> j) & 1 ? FILL : l4);
       }
-#pragma unroll
-      for (int j = 0; j < K; ++j) a[j] = ls * K + j < S ? v[j] + e[j] : NEG;
-      const long long ts1 = hl::stamp();
-      if (hist_n) store_run<K>(hist_n + (size_t)i * S + ls * K, a, S - ls * K);
-      const long long ts2 = hl::stamp();
-      if (L.sweep > 1 && i + 1 < len) {   // the edges for the next frame
-        if (lane == 31) edge[(i & 1) * L.sweep + w] = a[K - 1];
-        sweep_bar(L.lanes);
-      }
-      // frame i's cycles: its slot's ring wait (at the slot's first
-      // frame), the stencil, the history row, the edge barrier
-      hl::keep_phase(ph_on, 0, i, ring_wait);
-      hl::keep_phase(ph_on, 1, i, ts1 - ts0);
-      hl::keep_phase(ph_on, 2, i, ts2 - ts1);
-      hl::keep_phase(ph_on, 3, i, hl::stamp() - ts2);
-      ring_wait = 0;
     }
-    fwd_leave(L, sm, b);
-  }
-  // frames past the input length keep the frozen lattice
-  if (hist_n)
-    for (int t = len; t < T; ++t)
-      store_run<K>(hist_n + (size_t)t * S + ls * K, a, S - ls * K);
+#pragma unroll
+    for (int j = 0; j < K; ++j) x[j] = ls * K + j < S ? v[j] + e[j] : NEG;
+  });
 
   // the loss: the last four states (4u-1 .. 4u+2; state -1 the start lane)
   float* fin = reinterpret_cast<float*>(sm + L.fin);

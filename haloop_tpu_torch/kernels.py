@@ -43,14 +43,15 @@ _SIGNATURES = {
     # dgates, dh0, dgs, pmax, q, mq, T, B, H, plan, barrier words, stream
     "hl_lstm_bwd_q8": [_P] * 14 + [_I] * 3 + [_P] * 3,
     # log_probs, targets, input_lengths, target_lengths, loss, hist,
-    # T, N, C, U, stream
-    "hl_ctc_fwd": [_P] * 6 + [_I] * 4 + [_P],
+    # T, N, C, U, the plan (K, sweep warps, loader warps, frames, depth,
+    # smem), stream
+    "hl_ctc_fwd": [_P] * 6 + [_I] * 10 + [_P],
     # log_probs, targets, input_lengths, target_lengths, hist, loss, g,
     # dlogp, T, N, C, U, the plan (K, sweep warps, scatter warps, frames,
     # depth, dense, smem), stream
     "hl_ctc_bwd": [_P] * 8 + [_I] * 11 + [_P],
-    # f, g, lse, N, T, U1, V, rows, chunk, stream
-    "hl_joint_lse": [_P] * 3 + [_I] * 6 + [_P],
+    # f, g, lse, N, T, U1, V, the plan (nq, chunks, smem), vec, stream
+    "hl_joint_lse": [_P] * 3 + [_I] * 8 + [_P],
     # f, g, lse, dlse, df, dg, partial, N, T, U1, V, stream
     "hl_joint_lse_bwd": [_P] * 7 + [_I] * 4 + [_P],
     # star_lp, star_targets, input_lengths, target_lengths, loss, hist,
@@ -92,8 +93,8 @@ _SIGNATURES = {
 
 # the entry points of a trace_phases build: each copies its file's stamps
 # (PHASES x PHASE_ITEMS int64, csrc/sm90.cuh) of the last launch out
-PHASE_ENTRIES = ("hl_k11_phases", "hl_star_fwd_phases", "hl_ctc_bwd_phases",
-                 "hl_star_bwd_phases")
+PHASE_ENTRIES = ("hl_k11_phases", "hl_ctc_fwd_phases", "hl_star_fwd_phases",
+                 "hl_ctc_bwd_phases", "hl_star_bwd_phases")
 PHASES, PHASE_ITEMS = 8, 4096
 
 _lib = None

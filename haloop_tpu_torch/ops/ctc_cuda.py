@@ -9,8 +9,11 @@ log-softmax emissions -> (N,) positive NLL, with its analytic backward.
   * otherwise (serving) K3 alone.
 A CPU tensor takes the plain versions in ``ops.ctc`` (through the same
 Function under autograd); a CUDA tensor launches the kernels or raises.
-K4 runs the warp-specialized lattice backward of ``csrc/lattice_bwd.cuh``
-on the launch ``plan`` gives.
+Both run on the warp-specialized lattice skeleton of
+``csrc/lattice.cuh``: K3 sweeps the frames with K states a lane in
+registers while loader warps gather the emissions into a ring (the launch
+``fwd_plan`` gives), K4 is its backward mirror (``csrc/lattice_bwd.cuh``,
+the launch ``plan`` gives).
 """
 
 import torch
@@ -19,7 +22,11 @@ from haloop_tpu_torch import kernels
 from haloop_tpu_torch.ops import ctc as _ctc
 from haloop_tpu_torch.ops import lattice_cuda
 
-MAX_STATES = lattice_cuda.MAX_STATES   # 2U+1: K3's 1024 threads x 4, K4's
+MAX_STATES = lattice_cuda.MAX_STATES   # 2U+1: the lattice kernels' range
+# K3's least states a lane: even, so that a register's index fixes its
+# state's type (blank or label); 2 at S' = 193 reads faster than 4 over two
+# warps (PERF.md)
+FWD_MIN_PER_LANE = 2
 launches = 0          # K3 calls without the alpha history (serving)
 history_launches = 0  # K3 calls that write the history (under autograd)
 bwd_launches = 0      # K4 calls
@@ -29,6 +36,12 @@ def plan(S, C):
     """K4's launch for S = 2U+1 states and C classes
     (``lattice_cuda.plan``; K >= 2, the stencil's reach)."""
     return lattice_cuda.plan(S, C, 2, "ctc_grad")
+
+
+def fwd_plan(S, C):
+    """K3's launch for S = 2U+1 states and C classes
+    (``lattice_cuda.forward_plan``; K even, at least FWD_MIN_PER_LANE)."""
+    return lattice_cuda.forward_plan(S, C, FWD_MIN_PER_LANE, "ctc_loss")
 
 
 def ctc_loss(log_probs, targets, input_lengths, target_lengths,
@@ -127,11 +140,13 @@ def ctc_fwd_cuda(log_probs, targets, input_lengths, target_lengths,
                              f"{(N, T, 2 * U + 1)}")
         tensors.append(history)
     kernels.require_cuda("ctc_loss", *tensors)
+    p = fwd_plan(2 * U + 1, C)
     err = kernels.library().hl_ctc_fwd(
         log_probs.data_ptr(), targets.data_ptr(), input_lengths.data_ptr(),
         target_lengths.data_ptr(), loss.data_ptr(),
         history.data_ptr() if history is not None else None,
-        T, N, C, U, kernels.stream_of(log_probs))
+        T, N, C, U, p.per_lane, p.sweep_warps, p.loader_warps, p.frames,
+        p.depth, p.smem, kernels.stream_of(log_probs))
     kernels.check(err, "hl_ctc_fwd")
     if history is None:
         launches += 1

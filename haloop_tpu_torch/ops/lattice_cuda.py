@@ -1,9 +1,10 @@
 """The launch plans of the lattice kernels on ``csrc/lattice.cuh``'s
 skeleton: the backwards K4 (``csrc/ctc_bwd.cu``) and K8b
 (``csrc/star_bwd.cu``), shared by ``ops/ctc_cuda.plan`` and
-``ops/star_cuda.plan`` (``plan``), and the forward K8a
-(``csrc/star_fwd.cu``, ``ops/star_cuda.fwd_plan``: ``forward_plan``);
-pure Python, so the CPU tests hold them.
+``ops/star_cuda.plan`` (``plan``), and the forwards K3
+(``csrc/ctc_fwd.cu``, ``ops/ctc_cuda.fwd_plan``) and K8a
+(``csrc/star_fwd.cu``, ``ops/star_cuda.fwd_plan``), both on
+``forward_plan``; pure Python, so the CPU tests hold them.
 
 One block an utterance (``csrc/lattice_bwd.cuh``): ``sweep_warps`` warps
 (at most ``SWEEP_WARPS``) run the reverse beta sweep, lane l owning the
@@ -130,27 +131,28 @@ def plan(S, C, min_per_lane, name):
                      f"fit in shared memory ({SMEM_LIMIT} bytes)")
 
 
-# The forward (K8a): sweep warps (up to FWD_SWEEP_WARPS) hold K contiguous
-# states a lane, ``loader_warps`` warps gather each frame's emissions into a
-# ring of ``depth`` slots of ``frames`` frames (one row of K x 32 x
-# sweep_warps floats a frame); ``smem`` is byte for byte
-# ``hl::lat::fwd_layout``. K is 4 over a warpgroup at the train shapes (S =
-# 387): 2 over 7 warps, K4's stencil, read 0.171 ms against 0.151–0.153
-# in one-call timings on the H100 (PERF.md).
+# The forwards (K3, K8a): sweep warps (up to FWD_SWEEP_WARPS) hold K
+# contiguous states a lane, ``loader_warps`` warps gather each frame's
+# emissions into a ring of ``depth`` slots of ``frames`` frames (one row of
+# K x 32 x sweep_warps floats a frame); ``smem`` is byte for byte
+# ``hl::lat::fwd_layout``. K8a takes K = 4 over a warpgroup at the train
+# shapes (S = 387): 2 over 7 warps, K4's stencil, read 0.171 ms against
+# 0.151–0.153 in one-call timings on the H100 (PERF.md); K3 K = 2 over a
+# warpgroup at S' = 193 (``ctc_cuda.FWD_MIN_PER_LANE``).
 FWD_SWEEP_WARPS = 8
 LOADER_WARPS = 2
-FWD_K = (4, 8)          # the forward kernel's instantiations of K
+FWD_K = (2, 4, 8)       # the forward kernels' instantiations of K
 
 
 def fwd_max_warps(K):
     """The forward's launch bound (hl::lat::fwd_max_threads): 12 warps at
-    4 states a lane, 18 at 8."""
+    2 and 4 states a lane, 18 at 8."""
     return 18 if K >= 8 else MAX_WARPS
 
 
 class FwdPlan(NamedTuple):
     states: int         # S
-    classes: int        # 2V
+    classes: int        # C (CTC) or 2V (Star-CTC)
     per_lane: int       # K: states a sweep lane owns
     sweep_warps: int
     loader_warps: int
@@ -168,10 +170,13 @@ class FwdPlan(NamedTuple):
         return self.per_lane * self.lanes
 
 
+FWD_EDGES = 32          # a warp's tagged edge words (hl::lat::FWD_EDGES)
+
+
 def fwd_smem_bytes(S, K, sweep_warps, frames, depth):
-    """hl::lat::fwd_layout(...).bytes: mbarriers, edge exchange, the last
-    four states, each state's class, then the ring."""
-    return (_align16(2 * depth * 8) + _align16(2 * sweep_warps * 4) + 16 +
+    """hl::lat::fwd_layout(...).bytes: mbarriers, the warps' edge words,
+    the last four states, each state's class, then the ring."""
+    return (_align16(2 * depth * 8) + sweep_warps * FWD_EDGES * 8 + 16 +
             _align16(S * 4) + depth * frames * K * 32 * sweep_warps * 4)
 
 
@@ -184,9 +189,10 @@ def sweep_cap(K):
 
 
 @functools.lru_cache(maxsize=256)
-def forward_plan(S, C, name):
+def forward_plan(S, C, min_per_lane, name):
     """The launch of a forward lattice of ``S`` states and ``C`` classes:
-    the least K of ``FWD_K`` with which
+    the least K of ``FWD_K`` (at least ``min_per_lane``: 2 for K3, whose
+    state types alternate, 4 for K8a's period of 4) with which
     ``sweep_cap(K)`` warps hold the states, only the warps that own
     states, ``LOADER_WARPS`` loader warps, and the first ring of
     ``RINGS`` that fits in ``SMEM_LIMIT``. Raises ValueError where no
@@ -197,7 +203,8 @@ def forward_plan(S, C, name):
     if S > cap:
         raise ValueError(f"{name}: {S} lattice states exceed the kernel's "
                          f"{cap}")
-    K = next(k for k in FWD_K if 32 * sweep_cap(k) * k >= S)
+    K = next(k for k in FWD_K
+             if k >= min_per_lane and 32 * sweep_cap(k) * k >= S)
     warps = -(-(-(-S // K)) // 32)
     if warps + LOADER_WARPS > fwd_max_warps(K):
         raise ValueError(f"{name}: {warps} + {LOADER_WARPS} warps exceed "

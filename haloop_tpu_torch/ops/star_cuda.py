@@ -41,9 +41,10 @@ def plan(S, C2):
 
 def fwd_plan(S, C2):
     """K8a's launch for S = 4U+3 states and C2 = 2V classes
-    (``lattice_cuda.forward_plan``), refused past MAX_STATES."""
+    (``lattice_cuda.forward_plan``; K a multiple of 4, as ``plan``),
+    refused past MAX_STATES."""
     _check_states("star_ctc_loss", S)
-    return lattice_cuda.forward_plan(S, C2, "star_ctc_loss")
+    return lattice_cuda.forward_plan(S, C2, 4, "star_ctc_loss")
 
 
 def _check_states(name, S):

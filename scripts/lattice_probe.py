@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """The lattice kernels of the PyTorch port on ``csrc/lattice.cuh``'s
-skeleton alone on one GPU: the forward K8a (Star-CTC,
-``haloop_tpu_torch/csrc/star_fwd.cu``) and the backwards K4 (CTC,
-``csrc/ctc_bwd.cu``) and K8b (Star-CTC, ``csrc/star_bwd.cu``, both on
-``csrc/lattice_bwd.cuh``): their build, checks against the plain
+skeleton alone on one GPU: the forwards K3 (CTC,
+``haloop_tpu_torch/csrc/ctc_fwd.cu``) and K8a (Star-CTC,
+``csrc/star_fwd.cu``) and the backwards K4 (CTC, ``csrc/ctc_bwd.cu``) and
+K8b (Star-CTC, ``csrc/star_bwd.cu``, both on ``csrc/lattice_bwd.cuh``):
+their build, checks against the plain ``ctc_forward_history``,
 ``star_forward_history``, ``ctc_grad`` and ``star_grad``, and their
 times.
 
@@ -16,31 +17,35 @@ times.
     python3 scripts/lattice_probe.py --variants
         # this tree's plan variants timed in turns: one sweep warp or a
         # warpgroup, 4 or 8 scatter warps, rings of (frames, slots); K8a
-        # with 1 or 4 loader warps, 16 sweep warps, a ring of 4 x 2
+        # with 1 or 4 loader warps, 16 sweep warps, a ring of 4 x 2; K3
+        # with 4 states a lane over two warps (its plan: 2 over a
+        # warpgroup)
     python3 scripts/lattice_probe.py --phases
         # cycles a frame: the kernels built with their clock64 stamps
         # (-DHL_PHASES, into build/haloop_tpu_torch_phases/) in block 0
         # (the backward sweep's lane 0: ring wait, stencil, beta row, edge
         # barrier; the scatter's first thread, a slot's ring wait, rows and
-        # loads over its frames; K8a's sweep lane 0: ring wait, stencil,
-        # history row, edge barrier), medians; then again in copies under
-        # build/lattice_ablation*/ with the scatter's rows left out (the
-        # sweep alone), with the loads left out, and so on
+        # loads over its frames; K3's and K8a's sweep lane 0: ring wait,
+        # stencil, history row, edge barrier), medians; then again in copies
+        # under build/lattice_ablation*/ with the scatter's rows left out
+        # (the sweep alone), with the loads left out, and so on
+        # (``--only TEXT``: the ablations whose name holds it)
 
 ``--kernels-only`` (with --against or --times-only) leaves the rates out.
 DIR is another checkout of the repository (``git archive`` of a commit
 unpacked into a directory that .gitignore lists); each tree builds its
 own kernels into its own ``build/``. Shapes and inputs are
-``chip_smoke.py``'s (phases 6 and 9): lstm:512's train lattices, K4 at
-(T'=385, N=48, C=512, U=96), K8a and K8b at (385, 48, 2V=1024, U=96);
-K8a also at ``chip_smoke.STAR_LONG``'s S = 1027 and 4091 (N=5). Times are
+``chip_smoke.py``'s (phases 3, 6 and 9): lstm:512's train lattices, K3
+and K4 at (T'=385, N=48, C=512, U=96), K8a and K8b at (385, 48, 2V=1024,
+U=96); K3 also at S' = 2049 and 4095 (``CTC_LONG``), K8a at
+``chip_smoke.STAR_LONG``'s S = 1027 and 4091 (N=5). Times are
 CUDA events around one call behind a spin (``chip_smoke.cuda_ms``),
 median of 5, the card's name and power limit printed first: the kernel,
 its plain version, ``F.ctc_loss``'s backward beside K4 (no PyTorch call
 computes K8a's or K8b's function), the bound, and the kernel's cycles a
-frame of the longest item at the card's maximum SM clock. K3 with its
-history is timed too. Rates: lstm:512 CTC and Star-CTC train
-utterances/s at 48 x 12 s (``chip_smoke.host_ms``) and each train step's
+frame of the longest item at the card's maximum SM clock. Rates:
+lstm:512 CTC train and serving and Star-CTC train
+utterances/s at 48 x 12 s (``chip_smoke.host_ms``) and each step's
 device time from torch.profiler. Needs one card; imports nothing of JAX.
 """
 
@@ -66,22 +71,25 @@ def load(tree):
 
 @contextlib.contextmanager
 def patched(**attrs):
-    """``ops.lattice_cuda``'s module attributes set for a block (a plan
-    variant: SWEEP_WARPS, RINGS, the scatter_warps rule, FWD_SWEEP_WARPS
-    or LOADER_WARPS), the plan caches cleared on the way in and out."""
-    from haloop_tpu_torch.ops import lattice_cuda
-    old = {k: getattr(lattice_cuda, k) for k in attrs}
+    """Module attributes set for a block (a plan variant): those of
+    ``ops.lattice_cuda`` (SWEEP_WARPS, RINGS, the scatter_warps rule,
+    FWD_SWEEP_WARPS or LOADER_WARPS) and ``ops.ctc_cuda``'s
+    FWD_MIN_PER_LANE, the plan caches cleared on the way in and out."""
+    from haloop_tpu_torch.ops import ctc_cuda, lattice_cuda
+    mods = {k: ctc_cuda if k == "FWD_MIN_PER_LANE" else lattice_cuda
+            for k in attrs}
+    old = {k: getattr(mods[k], k) for k in attrs}
     caches = [getattr(lattice_cuda, f) for f in ("plan", "forward_plan")
               if hasattr(lattice_cuda, f)]
     for k, v in attrs.items():
-        setattr(lattice_cuda, k, v)
+        setattr(mods[k], k, v)
     for c in caches:
         c.cache_clear()
     try:
         yield
     finally:
         for k, v in old.items():
-            setattr(lattice_cuda, k, v)
+            setattr(mods[k], k, v)
         for c in caches:
             c.cache_clear()
 
@@ -121,7 +129,8 @@ def lattices(torch, cs, ops):
     out = {"K4": (cargs, ctc_cuda.ctc_bwd_cuda, ctc.ctc_grad, il),
            "K8b": (bargs, star_cuda.star_bwd_cuda, star.star_grad, sil),
            "K3 history": (args, lambda *a: ctc_cuda.ctc_fwd_cuda(
-               *a, history=hist), None, il),
+               *a, history=hist), ctc.ctc_forward_history, il),
+           "K3": (args, ctc_cuda.ctc_fwd_cuda, None, il),
            "K8a history": (sargs, lambda *a: star_cuda.star_fwd_cuda(
                *a, cs.STAR_PENALTY, history=shist), fwd_plain(star, cs),
                sil),
@@ -135,11 +144,20 @@ def lattices(torch, cs, ops):
         out[f"K8a history S={4 * U + 3}"] = (
             largs, lambda *a, h=lhist: star_cuda.star_fwd_cuda(
                 *a, cs.STAR_PENALTY, history=h), fwd_plain(star, cs), lil)
+    for T, N, C, U, seed in CTC_LONG:
+        largs = cs.long_lattice_inputs(torch, dev, T, N, C, U, seed)
+        lhist = torch.empty((N, T, 2 * U + 1), device=dev)
+        out[f"K3 history S'={2 * U + 1}"] = (
+            largs, lambda *a, h=lhist: ctc_cuda.ctc_fwd_cuda(*a, history=h),
+            ctc.ctc_forward_history, largs[2])
     return out
 
 
 # K8a's long lattices (chip_smoke.STAR_LONG at this tree): S = 1027, 4091
 STAR_LONG = ((700, 5, 20, 256, 1), (2300, 5, 20, 1022, 2))
+# K3's (T, N, C, U, seed): S' = 2049 (chip_smoke's long-lattice phase) and
+# 4095, the longest K3 takes
+CTC_LONG = ((2100, 3, 40, 1024, 11), (4200, 5, 40, 2047, 13))
 
 
 def fwd_plain(star, cs):
@@ -162,17 +180,24 @@ def checks(tree):
     for name, (args, kernel, plain, _) in lattices(torch, cs, ops).items():
         if plain is None:
             continue
-        if name.startswith("K8a"):
+        if name.startswith(("K8a", "K3")):
             T, N = args[0].shape[:2]
-            hist = torch.empty((N, T, args[1].shape[1] * 2 + 1),
-                               device=args[0].device)
-            loss = star_cuda.star_fwd_cuda(*args, cs.STAR_PENALTY,
-                                           history=hist)
+            S = args[1].shape[1] * 2 + 1     # 4U+3 from 2U+1; 2U+1 from U
+            if name.startswith("K8a"):
+                tol, htol = cs.STAR_TOL, cs.STAR_HIST_TOL
+                fwd = lambda **k: star_cuda.star_fwd_cuda(
+                    *args, cs.STAR_PENALTY, **k)
+            else:
+                tol, htol = cs.CTC_TOL, cs.CTC_HIST_TOL
+                fwd = lambda **k: ctc_cuda.ctc_fwd_cuda(*args, **k)
+            hist = torch.empty((N, T, S), device=args[0].device)
+            loss = fwd(history=hist)
             loss_e, hist_e = plain(*args)
-            ok = cs.close(loss, loss_e, cs.STAR_TOL)[0] and \
-                cs.close(hist, hist_e, cs.STAR_HIST_TOL)[0]
-            same = torch.equal(loss, star_cuda.star_fwd_cuda(
-                *args, cs.STAR_PENALTY, history=hist))
+            ok = cs.close(loss, loss_e, tol)[0] and \
+                cs.close(hist, hist_e, htol)[0]
+            hist2 = torch.empty_like(hist)
+            same = torch.equal(loss, fwd(history=hist2)) and \
+                torch.equal(hist, hist2) and torch.equal(loss, fwd())
             print(f"{'ok ' if ok and same else 'BAD'} {name}: max|dloss| "
                   f"{(loss - loss_e).abs().max().item():.3e}, max|dhist| "
                   f"{(hist - hist_e).abs().max().item():.3e}; same bits "
@@ -215,17 +240,19 @@ def times(tree, variants=()):
     for name, (args, kernel, plain, il) in lattices(torch, cs, ops).items():
         ms = cs.cuda_ms(lambda: kernel(*args))
         res[f"{name} ms"] = ms
-        if plain is None:
-            continue
         res[f"{name} cycles a frame"] = cs.cycles_a_frame(
-            ms, il, args[0].shape[0])[0] if hasattr(cs, "cycles_a_frame") \
-            else None
+            ms, il, args[0].shape[0])[0]
         for label, attrs in variants:
-            if label.startswith("K8a") != name.startswith("K8a"):
+            if family(label) != family(name):
                 continue
-            with patched(**attrs):
-                res[f"{name} {label} ms"] = cs.cuda_ms(lambda: kernel(*args))
-        res[f"{name} plain ms"] = cs.cuda_ms(lambda: plain(*args))
+            try:
+                with patched(**attrs):
+                    res[f"{name} {label} ms"] = cs.cuda_ms(
+                        lambda: kernel(*args))
+            except ValueError:          # no plan of the variant fits
+                res[f"{name} {label} ms"] = None
+        if plain is not None:
+            res[f"{name} plain ms"] = cs.cuda_ms(lambda: plain(*args))
     lp, targets, il, tl, hist, loss, g = lattices(torch, cs, ops)["K4"][0]
     lpg = lp.clone().requires_grad_(True)
     ref = torch.nn.functional.ctc_loss(lpg, targets, il, tl,
@@ -238,9 +265,17 @@ def times(tree, variants=()):
     return res
 
 
+def family(label):
+    """The kernel a lattice or a variant belongs to: K3, K8a or the
+    backwards."""
+    return next((k for k in ("K3", "K8a") if label.startswith(k)), "bwd")
+
+
 def rates(tree):
     """lstm:512 CTC and Star-CTC train utterances/s at 48 x 12 s (median
-    of 5 steps that end in a host read) and each step's device time."""
+    of 5 steps that end in a host read) and each step's device time; CTC
+    serving (the eval forward and decode, results on the host) the
+    same."""
     import torch
     cs, kernels, _ = load(tree)
     kernels.library()
@@ -260,6 +295,17 @@ def rates(tree):
         out[f"lstm:512 {label} train utt/s"] = 48 / ms * 1e3
         out[f"lstm:512 {label} train step device ms"] = \
             lstm_probe.device_ms(torch, step)
+        if label == "CTC":
+            def serve():
+                with torch.inference_mode():
+                    _, feats, lens, _ = system._forward_impl(*batch,
+                                                             train=False)
+                    res = system._decode_impl(feats, lens, train=False)
+                    return [t.cpu() for t in res]
+            ms, _ = cs.host_ms(torch, serve)
+            out["lstm:512 CTC serving utt/s"] = 48 / ms * 1e3
+            out["lstm:512 CTC serving device ms"] = \
+                lstm_probe.device_ms(torch, serve)
         del system
         torch.cuda.empty_cache()
     return out
@@ -268,8 +314,8 @@ def rates(tree):
 # --phases: the kernels built with their phase stamps (kernels.trace_phases:
 # block 0's frames; the backward sweep's lane 0: ring wait, stencil, beta
 # row, edge barrier; the scatter's first thread, a slot's ring wait, class
-# sums, refill and copy-out; K8a's sweep lane 0: ring wait, stencil,
-# history row, edge barrier), then again in copies with the (old, new) text
+# sums, refill and copy-out; K3's and K8a's sweep lane 0: ring wait,
+# stencil, history row, edge barrier), then again in copies with the (old, new) text
 # edits of an ablation to the lattice headers
 FWD_PHASES = ("ring wait", "stencil", "history row", "edge barrier")
 # sweep: a frame's share of the slot's ring wait, then per frame; scatter:
@@ -297,25 +343,43 @@ ABLATIONS = {
     "rows without the long classes": (
         ("    for (int k = warp; k < n_long; k += wg) {",
          "    for (int k = n_long; k < n_long; k += wg) {"),),
+    "forwards without the edge exchange": (
+        ("        if (w > 0 && i > 0) {   // the previous warp's word",
+         "        if (false) {   // the previous warp's word"),
+        ("      if (!fwd_tagged(K) && L.sweep > 1 && i + 1 < len) {",
+         "      if (false) {"),),
+    "forwards without the ring waits": (
+        ("    fwd_enter(L, sm, b);\n", ""),),
+    "forwards without the shuffle": (
+        ("      const float up = __shfl_up_sync(0xffffffffu, a[K - 1], 1);",
+         "      const float up = a[K - 1];"),),
+    "forwards with K3's stencil of maxima": (
+        ("        v[j] = lse2(x[j], l1, e[j]);",
+         "        v[j] = fmaxf(x[j], l1) + e[j];"),
+        ("        v[j] = lse3(x[j], l1, l2 + ((skip >> j) & 1 ? 0.f : NEG), "
+         "e[j]);",
+         "        v[j] = fmaxf(fmaxf(x[j], l1), l2 + ((skip >> j) & 1 ? 0.f "
+         ": NEG)) + e[j];")),
 }
 
 
 def ablation_tree(dst, ablation):
     """A copy of this tree's port and chip_smoke.py at ``dst`` with the
-    (old, new) edits of ``ablation`` to lattice_bwd.cuh or lattice.cuh
-    (whichever holds the old text once)."""
+    (old, new) edits of ``ablation`` to the lattice sources (whichever of
+    lattice_bwd.cuh, lattice.cuh and ctc_fwd.cu holds the old text
+    once)."""
     if dst.exists():
         shutil.rmtree(dst)
     shutil.copytree(HERE / "haloop_tpu_torch", dst / "haloop_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(HERE / "chip_smoke.py", dst / "chip_smoke.py")
     csrc = dst / "haloop_tpu_torch" / "csrc"
-    hdrs = {n: (csrc / n).read_text() for n in ("lattice_bwd.cuh",
-                                                 "lattice.cuh")}
+    srcs = {n: (csrc / n).read_text() for n in ("lattice_bwd.cuh",
+                                                 "lattice.cuh", "ctc_fwd.cu")}
     for old, new in ablation:
-        (n,) = [n for n, h in hdrs.items() if h.count(old) == 1]
-        hdrs[n] = hdrs[n].replace(old, new)
-    for n, h in hdrs.items():
+        (n,) = [n for n, h in srcs.items() if h.count(old) == 1]
+        srcs[n] = srcs[n].replace(old, new)
+    for n, h in srcs.items():
         (csrc / n).write_text(h)
 
 
@@ -353,22 +417,29 @@ def phase_report(tree):
               ", ".join(cells), flush=True)
         ms = cs.cuda_ms(lambda: kernel(*args))
         print(f"{name}: {ms:.4f} ms", flush=True)
-    args, kernel, _, il = cases["K8a history"]
-    kernel(*args)
-    torch.cuda.synchronize()
-    buf = np.zeros(shape, np.int64)
-    kernels.check(lib.hl_star_fwd_phases(buf.ctypes.data), "phases")
-    frames = min(int(il[0]), kernels.PHASE_ITEMS)
-    F = ops[3].fwd_plan(387, 1024).frames
-    sw = buf[:len(FWD_PHASES), 8:frames - 8]
-    print(f"K8a with history: cycles a frame, sweep "
-          f"{np.median(sw[1:].sum(0)) + sw[0].mean():.0f} (ring waits once "
-          f"a slot of {F} frames; {frames} frames in block 0); " +
-          ", ".join([f"{ph} {np.median(sw[i]):.0f}" for i, ph in
-                     enumerate(FWD_PHASES[1:], 1)] +
-                    [f"ring wait (mean) {sw[0].mean():.0f}"]), flush=True)
-    print(f"K8a with history: {cs.cuda_ms(lambda: kernel(*args)):.4f} ms",
-          flush=True)
+    for name, fn, p in (("K3", lib.hl_ctc_fwd_phases,
+                         ctc_cuda.fwd_plan(193, 512)),
+                        ("K8a", lib.hl_star_fwd_phases,
+                         star_cuda.fwd_plan(387, 1024))):
+        args, kernel, _, il = cases[f"{name} history"]
+        kernel(*args)
+        torch.cuda.synchronize()
+        buf = np.zeros(shape, np.int64)
+        kernels.check(fn(buf.ctypes.data), "phases")
+        frames = min(int(il[0]), kernels.PHASE_ITEMS)
+        sw = buf[:len(FWD_PHASES), 8:frames - 8]
+        print(f"{name} with history, plan {tuple(p)}: cycles a frame, sweep "
+              f"{np.median(sw[1:].sum(0)) + sw[0].mean():.0f} (ring waits "
+              f"once a slot of {p.frames} frames; {frames} frames in block "
+              f"0); " +
+              ", ".join([f"{ph} {np.median(sw[i]):.0f}" for i, ph in
+                         enumerate(FWD_PHASES[1:], 1)] +
+                        [f"ring wait (mean) {sw[0].mean():.0f}"]),
+              flush=True)
+        args0, kernel0 = cases[name][:2]
+        print(f"{name} with history: "
+              f"{cs.cuda_ms(lambda: kernel(*args)):.4f} ms, without: "
+              f"{cs.cuda_ms(lambda: kernel0(*args0)):.4f} ms", flush=True)
 
 
 VARIANTS = (("one sweep warp", dict(SWEEP_WARPS=1)),
@@ -380,7 +451,10 @@ VARIANTS = (("one sweep warp", dict(SWEEP_WARPS=1)),
             ("K8a 1 loader warp", dict(LOADER_WARPS=1)),
             ("K8a 4 loader warps", dict(LOADER_WARPS=4)),
             ("K8a 16 sweep warps", dict(FWD_SWEEP_WARPS=16)),
-            ("K8a ring 4 x 2", dict(RINGS=((4, 2),))))
+            ("K8a ring 4 x 2", dict(RINGS=((4, 2),))),
+            ("K3 4 states a lane", dict(FWD_MIN_PER_LANE=4)),
+            ("K3 8 states a lane", dict(FWD_MIN_PER_LANE=8)),
+            ("K3 4 loader warps", dict(LOADER_WARPS=4)))
 
 
 def main():
@@ -392,6 +466,8 @@ def main():
                     help="with --against or --times-only: no rates")
     ap.add_argument("--variants", action="store_true")
     ap.add_argument("--phases", action="store_true")
+    ap.add_argument("--only", default="",
+                    help="with --phases: the ablations whose name holds it")
     ap.add_argument("--phase-report", action="store_true",
                     help=argparse.SUPPRESS)     # one --phases tree
     a = ap.parse_args()
@@ -413,6 +489,8 @@ def main():
     print(card, flush=True)
     if a.phases:
         for i, (label, edits) in enumerate(ABLATIONS.items()):
+            if edits and a.only not in label:
+                continue
             dst = HERE
             if edits:
                 dst = HERE / "build" / f"lattice_ablation{i}"

@@ -598,6 +598,52 @@ def test_ctc_bwd_kernel_matches_plain(cuda, seed):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("per_lane", [2, 4])
+def test_ctc_fwd_kernel_with_each_plan(cuda, per_lane, monkeypatch):
+    """K3 at lstm:512's lattice (48 x 385 frames, 512 classes, S' = 193)
+    with its plan's 2 states a lane over a warpgroup and with 4 over two
+    warps forced, frames past len, empty, repeated, infeasible and
+    frameless items included: against ctc_forward_history (loss rel
+    1e-5, history atol 1e-3), the loss without the history equal to the
+    loss with it, loss and history the same bits on a second run."""
+    monkeypatch.setattr(ctc_cuda, "FWD_MIN_PER_LANE", per_lane)
+    assert ctc_cuda.fwd_plan(193, 512).per_lane == per_lane
+    args = _ctc_inputs(cuda, T=385, N=48, C=512, U=96, seed=8)
+    _edge_items(args[2], args[3], args[1], 385, 96)
+    hists = [torch.full((48, 385, 193), float("nan"), device=cuda)
+             for _ in range(2)]
+    before = ctc_cuda.launches, ctc_cuda.history_launches
+    loss = ctc_cuda.ctc_fwd_cuda(*args)
+    losses = [ctc_cuda.ctc_fwd_cuda(*args, history=h) for h in hists]
+    torch.cuda.synchronize()
+    assert (ctc_cuda.launches, ctc_cuda.history_launches) == \
+        (before[0] + 1, before[1] + 2)
+    loss_e, hist_e = ctc.ctc_forward_history(*args)
+    torch.testing.assert_close(loss, loss_e, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(hists[0], hist_e, rtol=1e-5, atol=1e-3)
+    assert torch.equal(loss, losses[0]) and torch.equal(*losses)
+    assert torch.equal(*hists)
+
+
+@pytest.mark.cuda
+def test_ctc_fwd_planted_edge_faults(cuda):
+    """K3's faults at lstm:512's lattice, computed from its plain version
+    with the skips s-2 -> s dropped where the sweep reads s-2 from another
+    lane (chip_smoke.ctc_fwd_faults): across the warps' edges and at a
+    lane edge inside each warp; each reads past CTC_TOL or CTC_HIST_TOL,
+    which the kernel reads under."""
+    args = _ctc_inputs(cuda, T=385, N=48, C=512, U=96, seed=99)
+    hist = torch.empty((48, 385, 193), device=cuda)
+    loss = ctc_cuda.ctc_fwd_cuda(*args, history=hist)
+    loss_e, hist_e = ctc.ctc_forward_history(*args)
+    assert chip_smoke.close(loss, loss_e, chip_smoke.CTC_TOL)[0]
+    assert chip_smoke.close(hist, hist_e, chip_smoke.CTC_HIST_TOL)[0]
+    faults = chip_smoke.ctc_fwd_faults(torch, ctc, ctc_cuda.fwd_plan(193, 512),
+                                       args, loss_e, hist_e)
+    assert len(faults) == 2
+
+
+@pytest.mark.cuda
 def test_ctc_autograd_launches_k3_and_k4(cuda):
     """Under autograd ctc_loss runs the CTCLoss Function (K3 with its
     history, then K4); its grads agree with the same Function on CPU
@@ -750,18 +796,23 @@ def _joint_inputs(device, N, T, U1, V, seed=0):
 
 
 JOINT_SHAPES = [
-    (2, 9, 5, 19),
+    (2, 9, 5, 19),                     # V % 4 != 0: 4-byte copies
     (3, 40, 7, 64),
     (1, 1, 1, 1),
-    (2, 33, 9, 4096),                  # g's rows go through shared memory
-                                       # in chunks
+    (2, 33, 9, 4096),
+    (3, 70, 40, 130),                  # two chunks of U+1, a tail stage
     (16, 301, 25, 512),                # rnn-transducer:lstm:512's joint
+    (2, 33, 9, 16384),                 # a 16k vocabulary
+    chip_smoke.JOINT_V16K,             # its joint at rnn-transducer's
 ]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,T,U1,V", JOINT_SHAPES)
 def test_joint_lse_kernel_matches_plain(cuda, N, T, U1, V):
+    """K9a against the plain factored pairwise_lse and the materialized
+    joint (atol 1e-5, rtol 1e-5), one launch a call, the same bits
+    twice."""
     f, g, _ = _joint_inputs(cuda, N, T, U1, V, seed=N + T + V)
     before = joint_cuda.launches
     lse = joint_cuda.pairwise_lse(f, g)
@@ -769,9 +820,44 @@ def test_joint_lse_kernel_matches_plain(cuda, N, T, U1, V):
     assert joint_cuda.launches == before + 1
     torch.testing.assert_close(lse, joint.pairwise_lse(f, g), rtol=1e-5,
                                atol=1e-5)
-    if N * T * U1 * V <= 2 ** 22:
-        torch.testing.assert_close(lse, joint.pairwise_lse_reference(f, g),
-                                   rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, joint.pairwise_lse_reference(f, g),
+                               rtol=1e-5, atol=1e-5)
+    assert torch.equal(lse, joint_cuda.pairwise_lse(f, g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("peaks", ["disjoint", "every"])
+def test_joint_lse_kernel_fixup(cuda, peaks):
+    """Where f and g peak at different v the factored sum underflows: the
+    cells (n, 7, 2) of the disjoint peaks, or every cell; K9a recomputes
+    them exactly and matches the plain version and the materialized joint
+    (atol 1e-5, rtol 1e-5), the same bits twice."""
+    f, g, _ = chip_smoke.joint_inputs(torch, cuda, 3, 40, 6, 300, 3, peaks)
+    marks = joint.marks(f, g)
+    if peaks == "every":
+        assert marks.all()
+    else:
+        assert marks[:, 7, 2].all() and int(marks.sum()) == 3
+    lse = joint_cuda.pairwise_lse(f, g)
+    torch.testing.assert_close(lse, joint.pairwise_lse(f, g), rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(lse, joint.pairwise_lse_reference(f, g),
+                               rtol=1e-5, atol=1e-5)
+    assert torch.equal(lse, joint_cuda.pairwise_lse(f, g))
+
+
+@pytest.mark.cuda
+def test_joint_lse_planted_faults(cuda):
+    """K9a's faults on the disjoint peaks at rnn-transducer:lstm:512's
+    joint, emulated from the plain version (chip_smoke.joint_faults): the
+    fix-up skipped, one stage of V left out; each reads past JOINT_TOL,
+    which the kernel reads under."""
+    f, g, _ = chip_smoke.joint_inputs(torch, cuda, 16, 301, 25, 512, 11,
+                                      "disjoint")
+    want = joint.pairwise_lse(f, g)
+    assert chip_smoke.close(joint_cuda.pairwise_lse(f, g), want,
+                            chip_smoke.JOINT_TOL)[0]
+    assert len(chip_smoke.joint_faults(torch, joint, f, g, want)) == 2
 
 
 @pytest.mark.cuda

@@ -1,7 +1,8 @@
 """The launch plans of the lattice kernels on ``csrc/lattice.cuh``'s
 skeleton (``haloop_tpu_torch/ops/lattice_cuda.py``): the backwards K4
 and K8b (through ``ops/ctc_cuda.plan`` and ``ops/star_cuda.plan``) and
-the forward K8a (``ops/star_cuda.fwd_plan``), on the CPU: every state
+the forwards K3 and K8a (``ops/ctc_cuda.fwd_plan``,
+``ops/star_cuda.fwd_plan``), on the CPU: every state
 owned by exactly one sweep lane, every stencil neighbour found where the
 kernels read it (a register of the lane, a neighbouring lane's by
 shuffle, a warp's edge through shared memory, the start lane before the
@@ -210,3 +211,72 @@ def test_forward_plans_take_r3s_range_and_raise_past_it():
     assert p.threads == 32 * 18
     with pytest.raises(ValueError, match="4095 lattice states"):
         star_cuda.fwd_plan(4095, 1024)
+
+
+# ------------------------------------------- the forward K3 (forward_plan)
+
+def _ctc_fwd_offsets(s):
+    """The CTC stencil's reach into state s: a blank s-1, a label s-1 and
+    s-2 (the skip)."""
+    return (-1,) if s % 2 == 0 else (-1, -2)
+
+
+@pytest.mark.parametrize("C", CLASSES)
+@pytest.mark.parametrize("S", [s for s in STATES if s % 2] + [2049])
+def test_ctc_forward_plan_owns_every_state_once_and_fits(S, C):
+    """K3's plans: K even (a register's index fixes its state's type),
+    every state owned once, each stencil neighbour in the lane's own
+    registers or the previous lane's last (a shuffle, or across a warp's
+    edge through shared memory), the shared memory fwd_layout's."""
+    p = ctc_cuda.fwd_plan(S, C)
+    K = p.per_lane
+    assert K in lattice_cuda.FWD_K and K % 2 == 0
+    assert K >= ctc_cuda.FWD_MIN_PER_LANE
+    owners = [divmod(s, K) for s in range(S)]
+    assert len(set(owners)) == S
+    assert all(0 <= lane < p.lanes and j % 2 == s % 2
+               for s, (lane, j) in zip(range(S), owners))
+    assert 32 * (p.sweep_warps - 1) < -(-S // K) <= p.lanes
+    assert p.sweep_warps <= lattice_cuda.sweep_cap(K)
+    for s in range(S):
+        for d in _ctc_fwd_offsets(s):
+            src = _fwd_source(p, s, d)
+            if src == ("start",):
+                assert s + d == -1
+            elif s + d < -1:
+                pytest.fail("the kernel reads no state before the start")
+            else:
+                assert src[1] * K + src[2] == s + d
+    assert p.smem == lattice_cuda.fwd_smem_bytes(
+        S, K, p.sweep_warps, p.frames, p.depth) <= lattice_cuda.SMEM_LIMIT
+    assert (p.frames, p.depth) in lattice_cuda.RINGS
+    assert p.threads == 32 * (p.sweep_warps + p.loader_warps) <= \
+        32 * lattice_cuda.fwd_max_warps(K)
+    assert ctc_cuda.fwd_plan(S, C) is p
+
+
+def test_ctc_forward_plans_at_the_train_shape(monkeypatch):
+    """lstm:512's lattice (S' = 193, 512 classes): 2 states a lane over a
+    warpgroup, 2 loader warps, a ring of 4 slots of 4 frames, the shared
+    memory fwd_layout's; with 4 states a lane forced (the variant K3's
+    choice was timed against), 2 sweep warps."""
+    p = ctc_cuda.fwd_plan(193, 512)
+    assert (p.per_lane, p.sweep_warps, p.loader_warps, p.frames,
+            p.depth) == (2, 4, 2, 4, 4)
+    assert p.smem == lattice_cuda.fwd_smem_bytes(193, 2, 4, 4, 4)
+    monkeypatch.setattr(ctc_cuda, "FWD_MIN_PER_LANE", 4)
+    p = ctc_cuda.fwd_plan(193, 512)
+    assert (p.per_lane, p.sweep_warps, p.loader_warps) == (4, 2, 2)
+
+
+def test_ctc_forward_plans_take_r3s_range_and_raise_past_it():
+    """S' = 2049 and 4095 (U = 2047, the longest K3 takes) plan with 8
+    states a lane over 9 and 16 sweep warps, the latter with the smaller
+    ring; 4097 raises, as K4's plan does."""
+    p = ctc_cuda.fwd_plan(2049, 40)
+    assert (p.per_lane, p.sweep_warps) == (8, 9)
+    p = ctc_cuda.fwd_plan(4095, 40)
+    assert (p.per_lane, p.sweep_warps, p.frames, p.depth) == (8, 16, 4, 2)
+    assert p.threads == 32 * 18
+    with pytest.raises(ValueError, match="4097 lattice states"):
+        ctc_cuda.fwd_plan(4097, 40)

@@ -116,6 +116,54 @@ def test_pairwise_lse_matches_jax(seed):
                                rtol=1e-6)
 
 
+def _peaks(every):
+    """f at +100 on one v and g at +100 on another, the rest N(0, 1): the
+    factored form's sum underflows at the cell of f's row 2 and g's row 1
+    (``every``: +200 on every row, every cell)."""
+    f, g, _ = _fg(5, N=2, T=7, U1=4, V=40)
+    f, g = f / 3, g / 3
+    if every:
+        f[..., 0], g[..., 1] = 200.0, 200.0
+    else:
+        f[0, 2, 3], g[0, 1, 30] = 100.0, 100.0
+    return f, g
+
+
+FACTORED_CASES = {
+    "disjoint peaks": lambda: _peaks(False),
+    "every cell marked": lambda: _peaks(True),
+    "V = 16384": lambda: _fg(3, N=1, T=6, U1=3, V=16384)[:2],
+    "V = 1": lambda: _fg(4, N=2, T=5, U1=3, V=1)[:2],
+}
+
+
+@pytest.mark.parametrize("case", list(FACTORED_CASES))
+def test_pairwise_lse_factored_cases_match_jax(case):
+    """The plain factored pairwise_lse (K9a's numerics: the product of the
+    exponentiated rows, the cells whose sum underflows recomputed exactly)
+    against the JAX kernel in interpret mode and the materialized joint,
+    where the fix-up is taken, past the parent kernel's vocabulary limit,
+    and at V = 1."""
+    f, g = FACTORED_CASES[case]()
+    ft, gt = torch.from_numpy(f), torch.from_numpy(g)
+    got = TJC.pairwise_lse(ft, gt)
+    want = JJ.pairwise_lse(jnp.asarray(f), jnp.asarray(g), True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-6)
+    np.testing.assert_allclose(got.numpy(),
+                               TJ.pairwise_lse_reference(ft, gt).numpy(),
+                               atol=1e-5, rtol=1e-6)
+    marks = TJ.marks(ft, gt)
+    if case == "disjoint peaks":
+        expect = torch.zeros_like(marks)
+        expect[0, 2, 1] = True
+        assert torch.equal(marks, expect)
+    elif case == "every cell marked":
+        assert marks.all()
+    else:
+        assert not marks.any()
+
+
 def test_pairwise_lse_grads_match_jax():
     f, g, dl = _fg(2)
     dl[1, 6:] = 0.0                  # frames past an item's length
