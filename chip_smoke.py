@@ -49,10 +49,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      against the plain pairwise_lse / pairwise_lse_grad (K9a also against
      the materialized joint) at rnn-transducer:lstm:512's joint (16, 301,
      25, 512), with a 16k vocabulary (V = 16384), on disjoint peaks that
-     take K9a's fix-up and with every cell marked: one launch a call, the
-     same bits twice, K9a's two planted faults (the fix-up skipped, one
-     stage of V left out) beyond JOINT_TOL; K1 and K2 at its widths
-     (phases 2 and 5: H=1024 encoder, H=512 prediction net)
+     take K9a's fix-up and K9b's exact terms, with every cell marked, and
+     with U+1 = 2049 (4, 301, 2049, 512): each kernel's plan, one launch a
+     call, the same bits twice (lse, df, dg), K9a's row maxima exact, K9a's
+     two planted faults (the fix-up skipped, one stage of V left out)
+     beyond JOINT_TOL and K9b's two (the marked cells' exact terms left
+     out, one frame group left out of dg) beyond JOINT_TOL / JOINT_DG_TOL;
+     on the inputs without marked cells K9b also against the fp64
+     factored form within (n + 64) 2^-24 sum|p| (n the rows a sum takes;
+     at U+1 = 2049 df's only check), and at U+1 = 2049 a third fault (one
+     chunk of rows left out of df) beyond that bound;
+     K1 and K2 at its widths (phases 2 and 5: H=1024 encoder, H=512
+     prediction net)
   9. kernels K8a/K8b (Star-CTC lattice, forward and backward) against the
      plain star_forward_history / star_grad at lstm:512's train shapes;
      each one's same bits on more runs and its planted faults (K8a: the
@@ -67,7 +75,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      against the plain path, train and eval utt/s, peak memory, a profile
      of the train step; then one train step of rnn-transducer:lstm:16384
      at batch 4 (K9a and K9b once each, the kernel path against the
-     plain path)
+     plain path, peak memory)
  11. lstm:512 ``--star-penalty -0.5``: one train step at batch 48 x 12 s,
      the same checks (and K8a's and K8b's plans), train utt/s
  11b. --rnn-q8 on every acoustic path (counts reset just before each,
@@ -251,6 +259,47 @@ JOINT_TOL = dict(atol=1e-5, rtol=1e-5)
 # sentencepiece vocabulary (V = 16384, past the parent kernel's 6,456)
 JOINT_V16K = (16, 301, 25, 16384)
 JOINT_DG_TOL = dict(atol=1e-4, rtol=1e-5)
+# K9b's long targets: 2,049 rows of U+1 (the parent kernel refused past
+# 1,816); 65 chunks of 32 rows of U+1 and 10 of T, a block each
+JOINT_U2049 = (4, 301, 2049, 512)
+# JOINT_TOL and JOINT_DG_TOL are stated for K9b's sums of up to 301 rows
+# (dg's over rnn-transducer:lstm:512's frames)
+K9B_TOL_ROWS = 301
+
+
+def k9b_tols(T, U1):
+    """(df's, dg's) limits for K9b against its fp32 plain version: df sums
+    the U+1 rows, dg the T frames; JOINT_TOL for df and JOINT_DG_TOL for
+    dg where a sum takes up to K9B_TOL_ROWS rows, else None: that sum is
+    held by ``k9b_exact``'s bound alone."""
+    return (JOINT_TOL if U1 <= K9B_TOL_ROWS else None,
+            JOINT_DG_TOL if T <= K9B_TOL_ROWS else None)
+
+
+def k9b_exact(joint, f, g, lse, dlse, mf, mg):
+    """The plain factored form evaluated in fp64 on K9b's inputs (on an
+    input with no marked cell) and each output's limit for K9b, keyed to
+    the rows it sums: n fp32 terms summed in any order lie within (n - 1)
+    2^-24 S of their exact sum, S the sum of their magnitudes, and each
+    term's own roundings (its exponentials, whose arguments reach 44 in W,
+    and its products) within 64 2^-24 of it: (n + 64) 2^-24 S, n = U+1
+    for df and T for dg, plus 1e-12 for the products that flush to 0
+    (each under 2^-62 |dlse|). -> ((df, dg) fp64, (df's, dg's limits),
+    the marked cells in fp64)."""
+    x = [t.double() for t in (f, g, lse, dlse, mf, mg)]
+    df, dg, marked = joint._grad_factored(*x)
+    sf, sg, _ = joint._grad_factored(*x[:3], x[3].abs(), *x[4:])
+    T, U1 = f.shape[1], g.shape[1]
+    return (df, dg), ((U1 + 64) * 2.0 ** -24 * sf + 1e-12,
+                      (T + 64) * 2.0 ** -24 * sg + 1e-12), int(marked.sum())
+
+
+def within_limit(got, want, limit):
+    """(all within the elementwise limit, max |got - want| / limit)"""
+    ratio = (got.double() - want).abs() / limit
+    return bool((ratio <= 1).all()), ratio.max().item()
+
+
 # K8a against its plain version with the kernel's numerics (loss, history)
 STAR_TOL = dict(atol=1e-4, rtol=1e-5)
 STAR_HIST_TOL = dict(atol=1e-3, rtol=1e-5)
@@ -385,18 +434,17 @@ SPIN_CYCLES = 2_000_000
 # fp32 elementwise operations per cell and step, as the kernels count
 # them: K1 4 gate sums, 3 sigmoids and 2 tanh (2 each), the c and h
 # updates (4); K2 the 5 delta products and sums of each gate (~25); a
-# lattice state 3 exp, 1 log and ~8 adds (12), its backward 16; a joint
-# cell of K9b f+g-lse, exp, the product and two sums (6); a star state's
-# 6-point stencil forward (~20), its backward (six-term logsumexp, the
-# clipped exp, ~28). K9a's function needs no work per joint cell but the
-# factored form's (``k9a_bound``)
+# lattice state 3 exp, 1 log and ~8 adds (12), its backward 16; a star
+# state's 6-point stencil forward (~20), its backward (six-term logsumexp, the
+# clipped exp, ~28). K9a's and K9b's functions need no work per joint cell
+# but the factored form's (``k9a_bound``, ``k9b_bound``)
 K1_ELEM, K2_ELEM, K3_ELEM, K4_ELEM = 20, 25, 12, 16
 # the int8 modes add, per cell and step: K1-q8 h * 127 and its rounding,
 # each gate's int32-to-float and scale (10); K2-q8 each gate's product
 # with s, |.|, max, division by m, * 127 and rounding, and the
 # dequantization of dh (26)
 K1Q8_ELEM, K2Q8_ELEM = K1_ELEM + 10, K2_ELEM + 26
-K9B_ELEM, K8A_ELEM, K8B_ELEM = 6, 20, 28
+K8A_ELEM, K8B_ELEM = 20, 28
 
 
 def check(ok, msg):
@@ -490,6 +538,16 @@ def k3_bound(input_lengths, N, T, S, U, history):
     nbytes = 4 * (cells + N * U + 2 * N + N) + \
         (4 * N * T * S if history else 0)
     return bound(nbytes, 0, K3_ELEM * cells)
+
+
+def k9b_bound(N, T, U1, V, live):
+    """K9b's least time: f, g, lse, dlse, mf and mg read and df and dg
+    written once; the factored form's operations, two FMAs (2 each) for
+    each of the ``live`` cells (dlse != 0) at each of the V columns, and one
+    for each of the N (T + U1) V exponentials."""
+    nbytes = 4 * (2 * N * T * V + 2 * N * U1 * V + 2 * N * T * U1 + N * T +
+                  N * U1)
+    return bound(nbytes, 0, 4.0 * live * V + N * (T + U1) * V)
 
 
 def k9a_bound(N, T, U1, V):
@@ -1687,7 +1745,8 @@ def joint_faults(torch, joint, f, g, want):
     for label, fault in (
             ("the fix-up skipped", mf[..., None] + mg[:, None] +
              torch.log(s)),
-            ("columns 64..127 left out", joint.pairwise_lse(left_out, g))):
+            ("columns 64..127 left out",
+             joint.pairwise_lse(left_out, g)[0])):
         ok, err = close(fault, want, JOINT_TOL)
         print(f"K9a planted fault, {label}: max|d| {err:.3e}, beyond "
               f"{JOINT_TOL}: {not ok}", flush=True)
@@ -1697,98 +1756,181 @@ def joint_faults(torch, joint, f, g, want):
     return out
 
 
+def joint_bwd_faults(torch, joint, f, g, lse, dlse, mf, mg, want):
+    """K9b's planted faults, emulated from the plain factored
+    pairwise_lse_grad on an input with marked cells: the marked cells'
+    exact terms left out (the factored products alone), and frames 32..63
+    (the kernel's second group of frames) left out of dg. -> {label: max
+    |d| of df or dg}; each must read beyond JOINT_TOL (df) or JOINT_DG_TOL
+    (dg)."""
+    bare = joint._grad_factored(f.float(), g.float(), lse, dlse, mf, mg)[:2]
+    cut = dlse.clone()
+    cut[:, 32:64] = 0.0
+    group = (want[0], joint.pairwise_lse_grad(f, g, lse, cut, mf, mg)[1])
+    out = {}
+    for label, (df, dg) in (("the marked cells' exact terms left out", bare),
+                            ("frames 32..63 left out of dg", group)):
+        ok_f, err_f = close(df, want[0], JOINT_TOL)
+        ok_g, err_g = close(dg, want[1], JOINT_DG_TOL)
+        print(f"K9b planted fault, {label}: max|ddf| {err_f:.3e}, max|ddg| "
+              f"{err_g:.3e}, beyond JOINT_TOL / JOINT_DG_TOL: "
+              f"{not (ok_f and ok_g)}", flush=True)
+        check(not (ok_f and ok_g), f"K9b's planted fault ({label}) reads "
+                                   f"within JOINT_TOL / JOINT_DG_TOL")
+        out[label] = max(err_f, err_g)
+    return out
+
+
+def joint_bwd_long_faults(joint, f, g, lse, dlse, mf, mg, exact, limits):
+    """K9b's planted fault on a long target, emulated from the plain
+    factored pairwise_lse_grad: rows 32..63 of U+1 (the kernel's second
+    chunk, one group of a df block's frames) left out of df. -> {label: max
+    |d| / limit}; it must read beyond ``k9b_exact``'s limit."""
+    cut = dlse.clone()
+    cut[:, :, 32:64] = 0.0
+    df = joint.pairwise_lse_grad(f, g, lse, cut, mf, mg)[0]
+    label = "rows 32..63 of U+1 left out of df"
+    ok, ratio = within_limit(df, exact[0], limits[0])
+    print(f"K9b planted fault, {label}: max |d| / limit {ratio:.3e}, beyond "
+          f"the fp64 bound: {not ok}", flush=True)
+    check(not ok, f"K9b's planted fault ({label}) reads within the fp64 "
+                  f"bound")
+    return {label: ratio}
+
+
 def phase_joint(torch, dev):
     """K9a/K9b against pairwise_lse / pairwise_lse_grad and K9a against the
     materialized joint: at rnn-transducer:lstm:512's joint (N=16, T'=301,
     U+1=25, V=512), with a 16k vocabulary (JOINT_V16K), on the disjoint
-    peaks (K9a's fix-up taken) and with every cell marked; one launch a
-    call, the same bits twice, K9a's planted faults; times (every cell
-    marked: the fix-up's cost, kept out of the main row)."""
+    peaks (K9a's fix-up and K9b's exact terms taken), with every cell
+    marked, and with 2,049 target rows (JOINT_U2049); one launch a call,
+    the same bits twice, K9a's row maxima exact, each kernel's planted
+    faults; times (every cell marked: the fix-up's cost, kept out of the
+    main row)."""
     from haloop_tpu_torch.ops import joint, joint_cuda
     cases = (("V=512", (16, 301, 25, 512), None, 9),
              (f"V={JOINT_V16K[3]}", JOINT_V16K, None, 10),
              ("disjoint peaks", (16, 301, 25, 512), "disjoint", 11),
-             ("every cell marked", (16, 301, 25, 512), "every", 12))
+             ("every cell marked", (16, 301, 25, 512), "every", 12),
+             (f"U+1={JOINT_U2049[2]}", JOINT_U2049, None, 13))
     fwd, bwd = {}, {}
     for label, (N, T, U1, V), peaks, seed in cases:
         f, g, dlse = joint_inputs(torch, dev, N, T, U1, V, seed, peaks)
         n0, b0 = joint_cuda.launches, joint_cuda.bwd_launches
-        lse = joint_cuda.lse_fwd_cuda(f, g)
-        lse2 = joint_cuda.lse_fwd_cuda(f, g)
-        df, dg = joint_cuda.lse_bwd_cuda(f, g, lse, dlse)
+        lse, mf, mg = joint_cuda.lse_fwd_cuda(f, g)
+        lse2 = joint_cuda.lse_fwd_cuda(f, g)[0]
+        df, dg = joint_cuda.lse_bwd_cuda(f, g, lse, dlse, mf, mg)
         torch.cuda.synchronize()
         once = (joint_cuda.launches, joint_cuda.bwd_launches) == \
             (n0 + 2, b0 + 1)
-        want = joint.pairwise_lse(f, g)
+        want = joint.pairwise_lse(f, g)[0]
         ok, err = close(lse, want, JOINT_TOL)
         ok_ref, err_ref = close(lse, joint.pairwise_lse_reference(f, g),
                                 JOINT_TOL)
+        maxima = torch.equal(mf, f.amax(-1)) and torch.equal(mg, g.amax(-1))
         marked = int(joint.marks(f, g).sum())
-        df_e, dg_e = joint.pairwise_lse_grad(f, g, lse, dlse)
-        ok_f, err_f = close(df, df_e, JOINT_TOL)
-        ok_g, err_g = close(dg, dg_e, JOINT_DG_TOL)
+        bmarked = int(joint.grad_marks(lse, dlse, mf, mg).sum())
+        grad_e = joint.pairwise_lse_grad(f, g, lse, dlse, mf, mg)
+        tol_f, tol_g = k9b_tols(T, U1)
+        ok_f, err_f = close(df, grad_e[0], tol_f or JOINT_TOL)
+        ok_g, err_g = close(dg, grad_e[1], tol_g or JOINT_DG_TOL)
+        # a sum past K9B_TOL_ROWS rows: read here, held by the fp64 bound
+        ok_f, ok_g = ok_f or tol_f is None, ok_g or tol_g is None
+        exact = {}
+        if peaks is None:       # no marked cell: the fp64 bound
+            grad_x, limits, marked_x = k9b_exact(joint, f, g, lse, dlse, mf,
+                                                 mg)
+            exact = dict(zip(("df", "dg"), (
+                within_limit(d, w, lim)
+                for d, w, lim in zip((df, dg), grad_x, limits))))
+            plain_x = [within_limit(d, w, lim)[1]
+                       for d, w, lim in zip(grad_e, grad_x, limits)]
+            print(f"K9b {label} against the fp64 factored form: max |d| / "
+                  f"limit, df {exact['df'][1]:.3e}, dg {exact['dg'][1]:.3e} "
+                  f"((n + 64) 2^-24 sum|p|, n = {U1} and {T} rows); the "
+                  f"fp32 plain's {plain_x[0]:.3e}, {plain_x[1]:.3e}",
+                  flush=True)
+            check(marked_x == 0 and exact["df"][0] and exact["dg"][0],
+                  f"K9b disagrees with the fp64 factored form ({label})")
+            if U1 > K9B_TOL_ROWS:
+                exact["faults"] = joint_bwd_long_faults(
+                    joint, f, g, lse, dlse, mf, mg, grad_x, limits)
+            del grad_x, limits
         padded = ~dlse.any(dim=2)                  # (N, T) rows past a length
-        same = torch.equal(lse, lse2) and torch.equal(
-            dg, joint_cuda.lse_bwd_cuda(f, g, lse, dlse)[1])
+        df2, dg2 = joint_cuda.lse_bwd_cuda(f, g, lse, dlse, mf, mg)
+        same = torch.equal(lse, lse2) and torch.equal(df, df2) and \
+            torch.equal(dg, dg2)
         plan = joint_cuda.plan(N, T, U1, V)
-        print(f"K9a joint_lse {label} N={N} T={T} U+1={U1} V={V}, plan "
-              f"{tuple(plan)}: {marked} marked cells; max|dlse|={err:.3e} "
-              f"(materialized joint {err_ref:.3e}; tol {JOINT_TOL}); K9b "
-              f"max|ddf|={err_f:.3e} max|ddg|={err_g:.3e} (tol {JOINT_TOL}, "
-              f"dg {JOINT_DG_TOL}); one launch a call: {once}; the same "
-              f"bits twice: {same}", flush=True)
+        bplan = joint_cuda.bwd_plan(N, T, U1, V,
+                                    joint_cuda.kernels.multiprocessors(dev))
+        print(f"K9a/K9b joint {label} N={N} T={T} U+1={U1} V={V}, K9a plan "
+              f"{tuple(plan)}, K9b bwd_plan {tuple(bplan)}: {marked} cells "
+              f"K9a recomputes, {bmarked} K9b takes exactly; "
+              f"max|dlse|={err:.3e} (materialized joint {err_ref:.3e}; tol "
+              f"{JOINT_TOL}); row maxima exact: {maxima}; K9b "
+              f"max|ddf|={err_f:.3e} max|ddg|={err_g:.3e} (tol {tol_f}, "
+              f"dg {tol_g}; None: the fp64 bound alone); one launch a call: "
+              f"{once}; the same "
+              f"bits twice (lse, df, dg): {same}", flush=True)
         check(ok and ok_ref, f"K9a disagrees with the plain pairwise_lse "
                              f"({label})")
+        check(maxima, f"K9a's row maxima are not f's and g's ({label})")
         check(ok_f and ok_g, f"K9b disagrees with the plain "
                              f"pairwise_lse_grad ({label})")
         check(not df[padded].any(), "K9b wrote df on frames with dlse = 0")
         check(once, f"K9a or K9b did not launch once a call ({label})")
         check(same, f"K9a or K9b gives other bits on another run ({label})")
-        check((marked > 0) == (peaks is not None),
-              f"the marked cells of {label}: {marked}")
+        check((marked > 0) == (peaks is not None) and
+              (bmarked > 0) == (peaks is not None),
+              f"the marked cells of {label}: {marked}, {bmarked}")
         report = dict(max_abs_err=err, ms=cuda_ms(
             lambda: joint_cuda.lse_fwd_cuda(f, g)), marked=marked,
                       plan=list(plan))
         report["bound_ms"], report["bound_by"] = k9a_bound(N, T, U1, V)
+        live = int((dlse != 0).sum())              # the cells K9b must weigh
+        back = dict(max_abs_err=max(err_f, err_g), ms=cuda_ms(
+            lambda: joint_cuda.lse_bwd_cuda(f, g, lse, dlse, mf, mg)),
+                    marked=bmarked, plan=list(bplan))
+        if exact:
+            back["fp64_err_over_limit"] = max(exact["df"][1], exact["dg"][1])
+        if "faults" in exact:
+            back["planted_faults"] = exact["faults"]
+        back["bound_ms"], back["bound_by"] = k9b_bound(N, T, U1, V, live)
         if peaks == "disjoint":
             report["planted_faults"] = joint_faults(torch, joint, f, g, want)
+            back["planted_faults"] = joint_bwd_faults(
+                torch, joint, f, g, lse, dlse, mf, mg, grad_e)
         if peaks is None:
             report["plain_ms"] = cuda_ms(lambda: joint.pairwise_lse(f, g))
             report["library_ms"] = cuda_ms(
                 lambda: torch.logsumexp(f[:, :, None] + g[:, None], -1))
+            back["plain_ms"] = cuda_ms(lambda: joint.pairwise_lse_grad(
+                f, g, lse, dlse, mf, mg))
             print(f"K9a joint_lse {label}: kernel {report['ms']:.4f} ms, plain "
                   f"{report['plain_ms']:.4f} ms, torch.logsumexp of the "
                   f"materialized joint {report['library_ms']:.4f} ms, bound "
                   f"{report['bound_ms']:.4f} ms ({report['bound_by']})",
                   flush=True)
-            live = int((dlse != 0).sum()) * V      # the cells K9b must weigh
-            b_ms, b_by = bound(4 * (2 * N * T * V + 2 * N * U1 * V +
-                                    2 * N * T * U1), 0, K9B_ELEM * live)
-            bwd[label] = dict(max_abs_err=max(err_f, err_g), ms=cuda_ms(
-                lambda: joint_cuda.lse_bwd_cuda(f, g, lse, dlse)),
-                              bound_ms=b_ms, bound_by=b_by)
-        else:
-            print(f"K9a joint_lse {label}: kernel {report['ms']:.4f} ms",
-                  flush=True)
-        fwd[label] = report
-        del f, g, dlse, lse, lse2, df, dg, want, df_e, dg_e
+        print(f"K9a joint_lse {label}: kernel {report['ms']:.4f} ms; K9b "
+              f"joint_lse_bwd: kernel {back['ms']:.4f} ms, plain "
+              f"{back.get('plain_ms', 'not timed')} ms, bound "
+              f"{back['bound_ms']:.4f} ms ({back['bound_by']})", flush=True)
+        fwd[label], bwd[label] = report, back
+        del f, g, dlse, lse, lse2, mf, mg, df, dg, df2, dg2, want, grad_e
         torch.cuda.empty_cache()
 
     # the main row, rnn-transducer:lstm:512's joint; the rest by shape
     reports = {"fwd": dict(fwd.pop("V=512"), by_shape=fwd)}
     N, T, U1, V = 16, 301, 25, 512
     f, g, dlse = joint_inputs(torch, dev, N, T, U1, V, 9)
-    lse = joint_cuda.lse_fwd_cuda(f, g)
     main = bwd.pop("V=512")
-    main["plain_ms"] = cuda_ms(lambda: joint.pairwise_lse_grad(f, g, lse,
-                                                               dlse))
     fr, gr = f.clone().requires_grad_(True), g.clone().requires_grad_(True)
     out = torch.logsumexp(fr[:, :, None] + gr[:, None], -1)
     main["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
         out, (fr, gr), dlse, retain_graph=True))
     del out
-    print(f"K9b joint_lse_bwd: kernel {main['ms']:.3f} ms, plain "
-          f"{main['plain_ms']:.3f} ms, the materialized joint's logsumexp "
+    print(f"K9b joint_lse_bwd: kernel {main['ms']:.4f} ms, plain "
+          f"{main['plain_ms']:.4f} ms, the materialized joint's logsumexp "
           f"backward {main['library_ms']:.3f} ms, bound "
           f"{main['bound_ms']:.4f} ms ({main['bound_by']}); by shape "
           f"{bwd}", flush=True)
@@ -2185,16 +2327,19 @@ def transducer_16k(torch, dev):
     """One train step of rnn-transducer:lstm:16384 through loop.System at
     batch 4 of the phase's frames (K9a at V = 16384, past the parent
     kernel's vocabulary limit), the counts reset just before it: K9a and
-    K9b once each, a finite loss, the kernel path against the plain
-    path."""
+    K9b once each, a finite loss, its peak memory, the kernel path against
+    the plain path."""
     system = make_system(torch, dev, "--arch", "rnn-transducer:lstm:16384")
     batch = transducer_batch(system, B=4)
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     loss, norm, bad = system.train_step(*batch)
     torch.cuda.synchronize()
     train = counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"rnn-transducer:lstm:16384 train step, batch 4: loss {loss:.4f} "
-          f"encoder grad norm {norm:.4f}; launches {train}", flush=True)
+          f"encoder grad norm {norm:.4f}; launches {train}; peak memory "
+          f"{peak:.3f} GiB on {card_line()}", flush=True)
     check(not bad and math.isfinite(loss), "non-finite 16k transducer step")
     check_counts("16k transducer train step", train,
                  dict(lstm_fwd_residual=5, lstm_bwd=5, joint_lse=1,

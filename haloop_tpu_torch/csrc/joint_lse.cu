@@ -49,6 +49,8 @@
 // ex2 with log2(e) folded in after the exact difference. At the end the 16
 // half-warps' sums of each cell are merged in warp order (their f maxima
 // differ), the threshold read, and the marked cells recomputed, one a warp.
+// The row maxima mf and mg come out beside lse: the backward K9b
+// (csrc/joint_lse_bwd.cu) takes the same factored form.
 // Every sum is taken in a fixed order: the same inputs give the same bits.
 
 #include <cuda_runtime.h>
@@ -193,6 +195,8 @@ __global__ void __launch_bounds__(THREADS)
     joint_lse(const float* __restrict__ f,    // (N, T, V)
               const float* __restrict__ g,    // (N, U1, V)
               float* __restrict__ lse,        // (N, T, U1)
+              float* __restrict__ mf_out,     // (N, T)
+              float* __restrict__ mg_out,     // (N, U1)
               int T, int U1, int V) {
   constexpr int UC = 4 * NQ, SG = g_stride(NQ);
   constexpr Layout L = layout(NQ);
@@ -371,6 +375,12 @@ __global__ void __launch_bounds__(THREADS)
   float fmax = maxes[lane];
 #pragma unroll
   for (int x = 1; x < GROUPS; ++x) fmax = fmaxf(fmax, maxes[x * ROWS + lane]);
+  // the row maxima, for K9b: f's by the first chunk's blocks, g's by the
+  // first frame tile's
+  if (blockIdx.y == 0 && w == 0 && t < T)
+    mf_out[(size_t)n * T + t] = fmax;
+  if (blockIdx.x == 0 && threadIdx.x < UC && u0 + threadIdx.x < U1)
+    mg_out[(size_t)n * U1 + u0 + threadIdx.x] = mg[threadIdx.x];
   float scale[GROUPS];
 #pragma unroll
   for (int x = 0; x < GROUPS; ++x)
@@ -407,31 +417,41 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 template <int NQ, bool VEC>
-cudaError_t launch(const float* f, const float* g, float* lse, int N, int T,
-                   int U1, int V, int chunks, cudaStream_t stream) {
+cudaError_t launch(const float* f, const float* g, float* lse, float* mf,
+                   float* mg, int N, int T, int U1, int V, int chunks,
+                   cudaStream_t stream) {
   static unsigned done = 0;
   constexpr int bytes = layout(NQ).bytes;
   cudaError_t err = hl::allow_smem(
       done, reinterpret_cast<const void*>(joint_lse<NQ, VEC>), bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((T + ROWS - 1) / ROWS, chunks, N);
-  joint_lse<NQ, VEC><<<grid, THREADS, bytes, stream>>>(f, g, lse, T, U1, V);
+  joint_lse<NQ, VEC><<<grid, THREADS, bytes, stream>>>(f, g, lse, mf, mg, T,
+                                                        U1, V);
   return cudaGetLastError();
 }
 
 template <bool VEC>
 cudaError_t launch_nq(int nq, const float* f, const float* g, float* lse,
-                      int N, int T, int U1, int V, int chunks,
-                      cudaStream_t s) {
+                      float* mf, float* mg, int N, int T, int U1, int V,
+                      int chunks, cudaStream_t s) {
   switch (nq) {
-    case 1: return launch<1, VEC>(f, g, lse, N, T, U1, V, chunks, s);
-    case 2: return launch<2, VEC>(f, g, lse, N, T, U1, V, chunks, s);
-    case 3: return launch<3, VEC>(f, g, lse, N, T, U1, V, chunks, s);
-    case 4: return launch<4, VEC>(f, g, lse, N, T, U1, V, chunks, s);
-    case 5: return launch<5, VEC>(f, g, lse, N, T, U1, V, chunks, s);
-    case 6: return launch<6, VEC>(f, g, lse, N, T, U1, V, chunks, s);
-    case 7: return launch<7, VEC>(f, g, lse, N, T, U1, V, chunks, s);
-    case 8: return launch<8, VEC>(f, g, lse, N, T, U1, V, chunks, s);
+    case 1:
+      return launch<1, VEC>(f, g, lse, mf, mg, N, T, U1, V, chunks, s);
+    case 2:
+      return launch<2, VEC>(f, g, lse, mf, mg, N, T, U1, V, chunks, s);
+    case 3:
+      return launch<3, VEC>(f, g, lse, mf, mg, N, T, U1, V, chunks, s);
+    case 4:
+      return launch<4, VEC>(f, g, lse, mf, mg, N, T, U1, V, chunks, s);
+    case 5:
+      return launch<5, VEC>(f, g, lse, mf, mg, N, T, U1, V, chunks, s);
+    case 6:
+      return launch<6, VEC>(f, g, lse, mf, mg, N, T, U1, V, chunks, s);
+    case 7:
+      return launch<7, VEC>(f, g, lse, mf, mg, N, T, U1, V, chunks, s);
+    case 8:
+      return launch<8, VEC>(f, g, lse, mf, mg, N, T, U1, V, chunks, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -439,15 +459,17 @@ cudaError_t launch_nq(int nq, const float* f, const float* g, float* lse,
 }  // namespace
 
 // f (N, T, V), g (N, U1, V) fp32 contiguous; lse (N, T, U1) fp32
-// receives the joint's logsumexp. The plan (ops/joint_cuda.py plan): nq,
-// the float4 groups of a chunk of g's rows (a chunk is 4 nq rows, 1 <= nq
-// <= 8), chunks of them, smem the block's shared-memory bytes, vec whether
-// f's and g's rows are 16-byte aligned (V % 4 == 0 and aligned pointers).
+// receives the joint's logsumexp, and mf (N, T), mg (N, U1) fp32 the row
+// maxima of f and g over v (K9b takes them). The plan (ops/joint_cuda.py
+// plan): nq, the float4 groups of a chunk of g's rows (a chunk is 4 nq rows,
+// 1 <= nq <= 8), chunks of them, smem the block's shared-memory bytes, vec
+// whether f's and g's rows are 16-byte aligned (V % 4 == 0 and aligned
+// pointers).
 // Returns the launch's cudaError_t (cudaErrorInvalidValue for a plan that
 // does not fit the shapes).
-extern "C" int hl_joint_lse(const void* f, const void* g, void* lse, int N,
-                            int T, int U1, int V, int nq, int chunks,
-                            int smem, int vec, void* stream) {
+extern "C" int hl_joint_lse(const void* f, const void* g, void* lse, void* mf,
+                            void* mg, int N, int T, int U1, int V, int nq,
+                            int chunks, int smem, int vec, void* stream) {
   if (N <= 0 || T <= 0 || U1 <= 0 || V <= 0 || nq < 1 || nq > 8 ||
       chunks != (U1 + 4 * nq - 1) / (4 * nq) || smem != layout(nq).bytes ||
       (vec && V % 4))
@@ -455,9 +477,11 @@ extern "C" int hl_joint_lse(const void* f, const void* g, void* lse, int N,
   const auto fp = static_cast<const float*>(f);
   const auto gp = static_cast<const float*>(g);
   const auto lp = static_cast<float*>(lse);
+  const auto xp = static_cast<float*>(mf);
+  const auto yp = static_cast<float*>(mg);
   const auto s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      vec ? launch_nq<true>(nq, fp, gp, lp, N, T, U1, V, chunks, s)
-          : launch_nq<false>(nq, fp, gp, lp, N, T, U1, V, chunks, s);
+      vec ? launch_nq<true>(nq, fp, gp, lp, xp, yp, N, T, U1, V, chunks, s)
+          : launch_nq<false>(nq, fp, gp, lp, xp, yp, N, T, U1, V, chunks, s);
   return static_cast<int>(err);
 }

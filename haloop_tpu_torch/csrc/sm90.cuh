@@ -495,11 +495,12 @@ __device__ __forceinline__ void wgmma_rs_m64n32(float (&d)[16],
 // ------------------------------------------------------------ phases
 
 // Phase stamps, compiled in only where the kernels are built with
-// -DHL_PHASES (the --phases runs of scripts/decode_probe.py and
-// scripts/lattice_probe.py, into a library of their own:
-// kernels.trace_phases): stamp() reads the SM's clock, and keep_phase(on,
-// k, i, v) keeps v as phase k of item i (a block, a frame) where `on`, in
-// the translation unit's hl_phase, which its hl_*_phases entry copies out.
+// -DHL_PHASES (the --phases runs of scripts/decode_probe.py,
+// scripts/lattice_probe.py and scripts/joint_probe.py, into a library of
+// their own: kernels.trace_phases): stamp() reads the SM's clock, and
+// keep_phase(on, k, i, v) keeps v as phase k of item i (a block, a frame)
+// where `on`, in the translation unit's hl_phase, which its hl_*_phases
+// entry copies out.
 // Elsewhere stamp() is 0 and keep_phase does nothing: both compile away.
 constexpr int PHASES = 8, PHASE_ITEMS = 4096;
 #ifdef HL_PHASES

@@ -50,10 +50,12 @@ _SIGNATURES = {
     # dlogp, T, N, C, U, the plan (K, sweep warps, scatter warps, frames,
     # depth, dense, smem), stream
     "hl_ctc_bwd": [_P] * 8 + [_I] * 11 + [_P],
-    # f, g, lse, N, T, U1, V, the plan (nq, chunks, smem), vec, stream
-    "hl_joint_lse": [_P] * 3 + [_I] * 8 + [_P],
-    # f, g, lse, dlse, df, dg, partial, N, T, U1, V, stream
-    "hl_joint_lse_bwd": [_P] * 7 + [_I] * 4 + [_P],
+    # f, g, lse, mf, mg, N, T, U1, V, the plan (nq,
+    # chunks, smem), vec, stream
+    "hl_joint_lse": [_P] * 5 + [_I] * 8 + [_P],
+    # f, g, lse, dlse, mf, mg, df, dg, N, T, U1, V, the plan (nq, chunks,
+    # tchunks, warps, smem), vec, stream
+    "hl_joint_lse_bwd": [_P] * 8 + [_I] * 10 + [_P],
     # star_lp, star_targets, input_lengths, target_lengths, loss, hist,
     # penalty, T, N, C2, U, the plan (K, sweep warps, loader warps, frames,
     # depth, smem), stream
@@ -94,7 +96,8 @@ _SIGNATURES = {
 # the entry points of a trace_phases build: each copies its file's stamps
 # (PHASES x PHASE_ITEMS int64, csrc/sm90.cuh) of the last launch out
 PHASE_ENTRIES = ("hl_k11_phases", "hl_ctc_fwd_phases", "hl_star_fwd_phases",
-                 "hl_ctc_bwd_phases", "hl_star_bwd_phases")
+                 "hl_ctc_bwd_phases", "hl_star_bwd_phases",
+                 "hl_joint_bwd_phases")
 PHASES, PHASE_ITEMS = 8, 4096
 
 _lib = None
@@ -172,8 +175,9 @@ def trace_phases():
     """Build, at the first launch, with the kernels' phase stamps compiled
     in (``-DHL_PHASES``; ``csrc/sm90.cuh`` stamp / keep_phase) into a
     library of its own beside the plain one, and bind the entry points
-    that copy the stamps out: the --phases runs of scripts/decode_probe.py
-    and scripts/lattice_probe.py. Call it before ``library``."""
+    that copy the stamps out: the --phases runs of scripts/decode_probe.py,
+    scripts/lattice_probe.py and scripts/joint_probe.py. Call it before
+    ``library``."""
     global BUILD, LIB
     if _lib is not None:
         raise RuntimeError("trace_phases: the plain library is loaded")

@@ -19,7 +19,8 @@ lands on the other side of a bf16 rounding boundary moves h by one bf16
 step; K3 rel 1e-5 on feasible items (one fp32 lattice each); K8a the
 same, with its history; K4 and K8b rel/abs 1e-3 (the JAX package's bound
 for its lattice kernels' grads); K9a/K9b 1e-5 (one fp32 logsumexp, or
-one sum of exps, in another order). K5/K7 in fp32 2e-5 (the JAX
+one sum of exps, in another order; K9b's dg atol 1e-4, a sum over up to
+301 frames). K5/K7 in fp32 2e-5 (the JAX
 package's bound for its flash kernel, tests/test_flash.py); in bf16
 atol=rtol=2e-2 with mean |d| < 2e-3: the kernel rounds the unnormalized
 probabilities to bf16 for P V where the plain version rounds the
@@ -43,8 +44,8 @@ same fp32 products summed in another order); bf16 2e-2 (one bf16
 rounding of each output). K1-q8 and K2-q8: rel L2 limits placed between
 the kernel against its plain version and two planted faults
 (``chip_smoke.K1Q8_REL``, ``K2Q8_REL``). K1 (both modes) and K2 in bf16,
-K1-q8, K2-q8, K4, K6, K8a, K8b, K11, K12 and K13 give the same bits on
-every run.
+K1-q8, K2-q8, K4, K6, K8a, K8b, K9a, K9b, K11, K12 and K13 give the same
+bits on every run.
 """
 
 import copy
@@ -818,11 +819,15 @@ def test_joint_lse_kernel_matches_plain(cuda, N, T, U1, V):
     lse = joint_cuda.pairwise_lse(f, g)
     torch.cuda.synchronize()
     assert joint_cuda.launches == before + 1
-    torch.testing.assert_close(lse, joint.pairwise_lse(f, g), rtol=1e-5,
+    torch.testing.assert_close(lse, joint.pairwise_lse(f, g)[0], rtol=1e-5,
                                atol=1e-5)
     torch.testing.assert_close(lse, joint.pairwise_lse_reference(f, g),
                                rtol=1e-5, atol=1e-5)
     assert torch.equal(lse, joint_cuda.pairwise_lse(f, g))
+    # the row maxima for K9b: the same launch, lse's bits unchanged
+    lse2, mf, mg = joint_cuda.lse_fwd_cuda(f, g)
+    assert torch.equal(lse2, lse)
+    assert torch.equal(mf, f.amax(-1)) and torch.equal(mg, g.amax(-1))
 
 
 @pytest.mark.cuda
@@ -839,7 +844,7 @@ def test_joint_lse_kernel_fixup(cuda, peaks):
     else:
         assert marks[:, 7, 2].all() and int(marks.sum()) == 3
     lse = joint_cuda.pairwise_lse(f, g)
-    torch.testing.assert_close(lse, joint.pairwise_lse(f, g), rtol=1e-5,
+    torch.testing.assert_close(lse, joint.pairwise_lse(f, g)[0], rtol=1e-5,
                                atol=1e-5)
     torch.testing.assert_close(lse, joint.pairwise_lse_reference(f, g),
                                rtol=1e-5, atol=1e-5)
@@ -854,30 +859,120 @@ def test_joint_lse_planted_faults(cuda):
     which the kernel reads under."""
     f, g, _ = chip_smoke.joint_inputs(torch, cuda, 16, 301, 25, 512, 11,
                                       "disjoint")
-    want = joint.pairwise_lse(f, g)
+    want = joint.pairwise_lse(f, g)[0]
     assert chip_smoke.close(joint_cuda.pairwise_lse(f, g), want,
                             chip_smoke.JOINT_TOL)[0]
     assert len(chip_smoke.joint_faults(torch, joint, f, g, want)) == 2
 
 
+# K9b's shapes: K9a's, and U+1 = 2049 (the parent kernel refused past
+# 1,816): 65 chunks of U+1's rows and 10 of T's, a block each
+JOINT_BWD_SHAPES = JOINT_SHAPES + [chip_smoke.JOINT_U2049]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,T,U1,V", JOINT_SHAPES)
+@pytest.mark.parametrize("N,T,U1,V", JOINT_BWD_SHAPES)
 def test_joint_lse_bwd_kernel_matches_plain(cuda, N, T, U1, V):
-    """K9b: df and dg from one joint softmax; rows with dlse = 0 give
-    exactly 0 in df."""
+    """K9b against the plain factored pairwise_lse_grad (chip_smoke.k9b_tols:
+    df atol 1e-5, dg atol 1e-4, rtol 1e-5, for sums of up to 301 rows) and
+    against its fp64 evaluation (chip_smoke.k9b_exact: (n + 64) 2^-24
+    sum|p|, n the rows summed; the only check of df at U+1 = 2049); rows
+    with dlse = 0 give exactly 0 in df; the same bits twice for df and dg
+    (every sum in a fixed order)."""
     f, g, dlse = _joint_inputs(cuda, N, T, U1, V, seed=N * T + V)
-    lse = joint.pairwise_lse(f, g)
+    lse, mf, mg = joint.pairwise_lse(f, g)
     before = joint_cuda.bwd_launches
-    df, dg = joint_cuda.lse_bwd_cuda(f, g, lse, dlse)
+    df, dg = joint_cuda.lse_bwd_cuda(f, g, lse, dlse, mf, mg)
     torch.cuda.synchronize()
     assert joint_cuda.bwd_launches == before + 1
-    df_e, dg_e = joint.pairwise_lse_grad(f, g, lse, dlse)
-    torch.testing.assert_close(df, df_e, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(dg, dg_e, rtol=1e-5, atol=1e-4)
+    df_e, dg_e = joint.pairwise_lse_grad(f, g, lse, dlse, mf, mg)
+    tol_f, tol_g = chip_smoke.k9b_tols(T, U1)
+    assert tol_f is None or chip_smoke.close(df, df_e, tol_f)[0]
+    assert tol_g is None or chip_smoke.close(dg, dg_e, tol_g)[0]
+    exact, limits, marked = chip_smoke.k9b_exact(joint, f, g, lse, dlse, mf,
+                                                 mg)
+    assert marked == 0
+    assert chip_smoke.within_limit(df, exact[0], limits[0])[0]
+    assert chip_smoke.within_limit(dg, exact[1], limits[1])[0]
     if T > 1:
         assert not df[0, T // 2:].any()
-    # the same inputs give the same dg: the tiles are summed in order
-    assert torch.equal(dg, joint_cuda.lse_bwd_cuda(f, g, lse, dlse)[1])
+    df2, dg2 = joint_cuda.lse_bwd_cuda(f, g, lse, dlse, mf, mg)
+    assert torch.equal(df, df2) and torch.equal(dg, dg2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("peaks", ["disjoint", "every"])
+def test_joint_lse_bwd_kernel_fixup(cuda, peaks):
+    """Where f and g peak at different v the factored weight would pass
+    2^64 dlse: K9b adds the marked cells' exact terms (the disjoint peaks'
+    cells (n, 7, 2) with dlse != 0, or every cell) and matches the plain
+    version and the direct oracle (df atol 1e-5, dg atol 1e-4, rtol
+    1e-5), the same bits twice."""
+    f, g, dlse = chip_smoke.joint_inputs(torch, cuda, 3, 40, 6, 300, 3,
+                                         peaks)
+    lse, mf, mg = joint_cuda.lse_fwd_cuda(f, g)
+    marks = joint.grad_marks(lse, dlse, mf, mg)
+    if peaks == "every":
+        assert torch.equal(marks, dlse != 0)
+    else:
+        assert torch.equal(marks[:, 7, 2], dlse[:, 7, 2] != 0)
+        assert int(marks.sum()) == int((dlse[:, 7, 2] != 0).sum()) > 0
+    df, dg = joint_cuda.lse_bwd_cuda(f, g, lse, dlse, mf, mg)
+    for want in (joint.pairwise_lse_grad(f, g, lse, dlse, mf, mg),
+                 joint.pairwise_lse_grad_reference(f, g, lse, dlse)):
+        torch.testing.assert_close(df, want[0], rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(dg, want[1], rtol=1e-5, atol=1e-4)
+    df2, dg2 = joint_cuda.lse_bwd_cuda(f, g, lse, dlse, mf, mg)
+    assert torch.equal(df, df2) and torch.equal(dg, dg2)
+
+
+@pytest.mark.cuda
+def test_joint_lse_bwd_planted_faults(cuda):
+    """K9b's faults on the disjoint peaks at rnn-transducer:lstm:512's
+    joint, emulated from the plain version (chip_smoke.joint_bwd_faults):
+    the marked cells' exact terms left out, one frame group left out of
+    dg; each reads past JOINT_TOL / JOINT_DG_TOL, which the kernel reads
+    under. At U+1 = 2049 (chip_smoke.joint_bwd_long_faults): one chunk of
+    U+1's rows left out of df reads past the fp64 bound, which the kernel
+    reads under."""
+    f, g, dlse = chip_smoke.joint_inputs(torch, cuda, 16, 301, 25, 512, 11,
+                                         "disjoint")
+    lse, mf, mg = joint_cuda.lse_fwd_cuda(f, g)
+    df, dg = joint_cuda.lse_bwd_cuda(f, g, lse, dlse, mf, mg)
+    want = joint.pairwise_lse_grad(f, g, lse, dlse, mf, mg)
+    assert chip_smoke.close(df, want[0], chip_smoke.JOINT_TOL)[0]
+    assert chip_smoke.close(dg, want[1], chip_smoke.JOINT_DG_TOL)[0]
+    assert len(chip_smoke.joint_bwd_faults(torch, joint, f, g, lse, dlse,
+                                           mf, mg, want)) == 2
+    f, g, dlse = chip_smoke.joint_inputs(torch, cuda, *chip_smoke.JOINT_U2049,
+                                         13)
+    lse, mf, mg = joint_cuda.lse_fwd_cuda(f, g)
+    df = joint_cuda.lse_bwd_cuda(f, g, lse, dlse, mf, mg)[0]
+    exact, limits, _ = chip_smoke.k9b_exact(joint, f, g, lse, dlse, mf, mg)
+    assert chip_smoke.within_limit(df, exact[0], limits[0])[0]
+    assert len(chip_smoke.joint_bwd_long_faults(joint, f, g, lse, dlse, mf,
+                                                mg, exact, limits)) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,T,U1,V", [(16, 301, 25, 512),
+                                      chip_smoke.JOINT_U2049])
+def test_joint_lse_bwd_allocates_no_scratch(cuda, N, T, U1, V):
+    """One K9b call allocates df and dg and nothing more: no (N, tiles,
+    U+1, V) partial sums (15.6 MB at the first shape, against df's 9.9
+    MB), and at U+1 = 2049 no partial sums of df across the chunks."""
+    f, g, dlse = _joint_inputs(cuda, N, T, U1, V, seed=5)
+    lse, mf, mg = joint_cuda.lse_fwd_cuda(f, g)
+    joint_cuda.lse_bwd_cuda(f, g, lse, dlse, mf, mg)      # built, warm
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = joint_cuda.lse_bwd_cuda(f, g, lse, dlse, mf, mg)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - base
+    # df and dg, with 2 MiB for the allocator's rounding of its blocks
+    assert grown <= 4 * (N * T * V + N * U1 * V) + 2 ** 21, grown
+    del out
 
 
 @pytest.mark.cuda
@@ -887,6 +982,7 @@ def test_joint_autograd_launches_k9a_and_k9b(cuda):
     g.requires_grad_(True)
     f0, b0 = joint_cuda.launches, joint_cuda.bwd_launches
     (joint_cuda.pairwise_lse(f, g) * dlse).sum().backward()
+    torch.cuda.synchronize()
     assert (joint_cuda.launches, joint_cuda.bwd_launches) == (f0 + 1, b0 + 1)
     fc, gc = (t.detach().cpu().requires_grad_(True) for t in (f, g))
     (joint_cuda.pairwise_lse(fc, gc) * dlse.cpu()).sum().backward()
@@ -1151,8 +1247,13 @@ def test_star_and_joint_kernels_reject_what_they_do_not_take(cuda):
         joint_cuda.pairwise_lse(f.double(), g.double())
     with pytest.raises(ValueError):                  # V differs
         joint_cuda.pairwise_lse(f, g[..., :-1])
+    lse, mf, mg = joint_cuda.lse_fwd_cuda(f, g)
     with pytest.raises(ValueError, match="expected CUDA"):
-        joint_cuda.lse_bwd_cuda(f, g, dlse.cpu(), dlse)
+        joint_cuda.lse_bwd_cuda(f, g, lse.cpu(), dlse, mf, mg)
+    with pytest.raises(ValueError, match="expected CUDA"):
+        joint_cuda.lse_bwd_cuda(f, g, lse, dlse, mf.cpu(), mg)
+    with pytest.raises(ValueError):                  # mg of another U+1
+        joint_cuda.lse_bwd_cuda(f, g, lse, dlse, mf, mg[:, :-1])
 
 
 # ------------------------------------------- flash attention (K5, K7)

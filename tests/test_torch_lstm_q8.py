@@ -38,6 +38,7 @@ import haloop_tpu_torch.models.recognizer as t_recognizer
 import haloop_tpu_torch.models.rnn as t_rnn
 from haloop_tpu_torch import loop
 from haloop_tpu_torch.nn import lstm, lstm_cuda
+from haloop_tpu_torch.ops import joint as t_joint
 
 from test_torch_loop import by_tag, run, stats, write_hac_checkpoint
 from test_torch_train import batch, make_systems
@@ -303,6 +304,21 @@ def no_dropout(monkeypatch):
         monkeypatch.setattr(mod, "dropout_fn", lambda k, x, *a, **kw: x)
 
 
+def _joint_grad_direct(f, g, lse, dlse, mf, mg):
+    """The joint's backward as ops/joint.py's direct oracle (the JAX
+    kernel's arithmetic), in place of the port's factored form."""
+    return t_joint.pairwise_lse_grad_reference(f, g, lse, dlse)
+
+
+def _joint_grad_fp64(f, g, lse, dlse, mf, mg):
+    """The joint's backward as the direct sum in fp64: the exact gradient
+    of the fp32 lse the forward gave."""
+    f, g, lse, dlse = (x.double() for x in (f, g, lse, dlse))
+    p = torch.exp(f[:, :, None] + g[:, None] - lse[..., None]) * \
+        dlse[..., None]                                    # (N, T, U+1, V)
+    return p.sum(2).float(), p.sum(1).float()
+
+
 @pytest.mark.parametrize("steps", [1, 3])
 @pytest.mark.parametrize("arch", ["lstm-tiny:512", "rnn-transducer-tiny:512"])
 def test_q8_train_steps_match_jax(no_dropout, monkeypatch, arch, steps):
@@ -316,25 +332,57 @@ def test_q8_train_steps_match_jax(no_dropout, monkeypatch, arch, steps):
     moves visibly: params within 1e-5 on all but 5% of the elements (read
     3.0% at most) and 2 lr on every one. Three steps: the first update's
     moved elements change the next gradients, and Adam's early steps are
-    near lr * sign(g): loss rel 1e-3, norm rel 1e-2 (read 1.3e-4 and
-    3.4e-3 at most) and every param within 2 lr a step."""
+    near lr * sign(g), so a rounding anywhere moves the third loss by up
+    to ~1e-3: every param within 2 lr a step, and the losses and norms
+    held by three runs of the port on the same batches, its joint
+    backward the factored form in the first, the direct sum in fp32 (the
+    JAX kernel's arithmetic) in the second and in fp64 (the exact
+    gradient) in the third:
+      * direct fp32 against JAX: the int8 paths with the joint's
+        arithmetic matched, loss rel 1e-3, norm rel 1e-2 (read 9.95e-4
+        and 3.4e-3 at most);
+      * the port against JAX within the same limits plus what the joint's
+        arithmetic alone moves in this run (|port - direct fp32|; the
+        port's third loss read 1.58e-3 from JAX's, 5.8e-4 of it from the
+        joint's arithmetic);
+      * the port no farther from the fp64 run than the direct fp32 run
+        is: its factored form is nearer the exact gradient (at the second
+        step, where the prediction net's logits reach 112, 2.2e-8 from it
+        against the direct form's 2.9e-7). The third losses read: the
+        fp64 run 1.58e-3 from JAX's, the port 4.5e-6 from the fp64 run (its
+        second step the fp64 run's bits) and the direct fp32 run 5.9e-4."""
     monkeypatch.setenv("HALOOP_RNN_Q8", "1")
     monkeypatch.setenv("HALOOP_KERNELS", "1")
     jsys, tsys = make_systems("--arch", arch, "--rnn-q8")
     assert tsys.args.rnn_q8
     lr = tsys.args.lr
-    tol = dict(loss=1e-5, norm=1e-4) if steps == 1 else \
-        dict(loss=1e-3, norm=1e-2)
+    controls = [] if steps == 1 else [
+        make_systems("--arch", arch, "--rnn-q8")[1] for _ in range(2)]
+    grads = [t_joint.pairwise_lse_grad, _joint_grad_direct, _joint_grad_fp64]
     for step in range(steps):
         _, inputs, ct, il, tl = batch(start=8 * (step % 2))
         out = jsys._train_step(jsys.params, jsys.opt_state, inputs, ct, il,
                                tl, jsys.next_key(), jnp.int32(step))
         jsys.params, jsys.opt_state = out[0], out[1]
-        loss, norm, bad = tsys.train_step(*tsys.to_device(inputs, ct, il,
-                                                          tl))
-        assert not bad and not bool(out[4])
-        np.testing.assert_allclose(loss, float(out[2]), rtol=tol["loss"])
-        np.testing.assert_allclose(norm, float(out[3]), rtol=tol["norm"])
+        want = np.array([float(out[2]), float(out[3])])
+        runs = []
+        for sys_, grad in zip([tsys] + controls, grads):
+            monkeypatch.setattr(t_joint, "pairwise_lse_grad", grad)
+            loss, norm, bad = sys_.train_step(*sys_.to_device(inputs, ct, il,
+                                                              tl))
+            assert not bad and not bool(out[4])
+            runs.append(np.array([loss, norm], dtype=np.float64))
+        if steps == 1:
+            np.testing.assert_allclose(runs[0][0], want[0], rtol=1e-5)
+            np.testing.assert_allclose(runs[0][1], want[1], rtol=1e-4)
+            continue
+        port, direct, exact = runs
+        limit = np.array([1e-3, 1e-2]) * np.abs(want)
+        assert (np.abs(direct - want) <= limit).all(), (step, direct, want)
+        assert (np.abs(port - want) <= limit + np.abs(port - direct)).all(), \
+            (step, port, direct, want)
+        assert (np.abs(port - exact) <= np.abs(direct - exact)).all(), \
+            (step, port, direct, exact)
     assert tsys.updates == steps
     want = jax.tree.map(np.asarray, jsys.params)
     for path, leaf in tsys.leaves:

@@ -177,6 +177,147 @@ def test_pairwise_lse_grads_match_jax():
     assert not ft.grad[1, 6:].any()
 
 
+def _grad_case(case):
+    """(f, g, dlse) of a factored-backward case: the disjoint peaks (the
+    cell (0, 2, 1) marked), every cell marked, or every cell marked with
+    the rows of item 0 past frame 2 at dlse = 0 (there e^(mf + mg - lse)
+    overflows to inf, which the select keeps from meeting the 0)."""
+    f, g = _peaks(case != "disjoint peaks")
+    dl = _fg(6, N=2, T=7, U1=4)[2]
+    if case == "rows with dlse = 0":
+        dl[0, 2:] = 0.0
+    return f, g, dl
+
+
+@pytest.mark.parametrize("case", ["disjoint peaks", "every cell marked",
+                                  "rows with dlse = 0"])
+def test_pairwise_lse_grad_factored_cases_match_jax(case):
+    """The plain factored pairwise_lse_grad (K9b's numerics: the products
+    of the exponentiated rows with the weights W, the marked cells' exact
+    terms added) through autograd against the JAX kernel's VJP in
+    interpret mode, and against the direct oracle on the same lse."""
+    f, g, dl = _grad_case(case)
+    ft = torch.from_numpy(f).requires_grad_(True)
+    gt = torch.from_numpy(g).requires_grad_(True)
+    (TJC.pairwise_lse(ft, gt) * torch.from_numpy(dl)).sum().backward()
+    df, dg = jax.grad(lambda f, g: (JJ.pairwise_lse(f, g, True) * dl).sum(),
+                      argnums=(0, 1))(jnp.asarray(f), jnp.asarray(g))
+    np.testing.assert_allclose(ft.grad.numpy(), np.asarray(df), **GRAD_TOL)
+    np.testing.assert_allclose(gt.grad.numpy(), np.asarray(dg), **GRAD_TOL)
+    fd, gd, dlt = ft.detach(), gt.detach(), torch.from_numpy(dl)
+    lse, mf, mg = TJ.pairwise_lse(fd, gd)
+    rf, rg = TJ.pairwise_lse_grad_reference(fd, gd, lse, dlt)
+    np.testing.assert_allclose(ft.grad.numpy(), rf.numpy(), **GRAD_TOL)
+    np.testing.assert_allclose(gt.grad.numpy(), rg.numpy(), **GRAD_TOL)
+    marked = TJ.grad_marks(lse, dlt, mf, mg)
+    if case == "disjoint peaks":
+        expect = torch.zeros_like(marked)
+        expect[0, 2, 1] = True
+        assert torch.equal(marked, expect)
+    else:
+        assert torch.equal(marked, dlt != 0) and marked.any()
+    if case == "rows with dlse = 0":
+        assert not ft.grad[0, 2:].any()
+        assert torch.isfinite(ft.grad).all() and torch.isfinite(gt.grad).all()
+
+
+def _at_threshold(ulps):
+    """f, g with f's row 1 at +46.4 on v = 2 and g's row 2 on v = 20 (the
+    rest N(0, 1)), dlse, and the plain forward's (lse, mf, mg) with
+    lse[0, 1, 2] moved (by about 0.04) so that mf + mg - lse, in fp32 as
+    the backward computes it, is joint.MARK's fp32 value exactly, ``ulps``
+    fp32 steps of lse below it (then over the threshold)."""
+    f, g, dl = _fg(7, N=1, T=4, U1=3, V=24)
+    f, g = f / 3, g / 3
+    f[0, 1, 2], g[0, 2, 20] = 46.4, 46.4
+    lse, mf, mg = TJ.pairwise_lse(torch.from_numpy(f), torch.from_numpy(g))
+    lse = lse.numpy().copy()
+    s = np.float32(mf[0, 1].item()) + np.float32(mg[0, 2].item())
+    mark = np.float32(TJ.MARK)
+    x = np.float32(s - mark)
+    for step in (0, 1, -1, 2, -2):
+        y = np.nextafter(x, np.float32(np.inf * step)) if step else x
+        for _ in range(abs(step) - 1):
+            y = np.nextafter(y, np.float32(np.inf * step))
+        if np.float32(s - y) == mark:
+            break
+    assert np.float32(s - y) == mark
+    assert abs(float(y) - float(lse[0, 1, 2])) < 0.1    # near the true lse
+    for _ in range(ulps):
+        y = np.nextafter(y, np.float32(-np.inf))
+    lse[0, 1, 2] = y
+    return f, g, dl, torch.from_numpy(lse), mf, mg
+
+
+@pytest.mark.parametrize("ulps", [0, 1])
+def test_pairwise_lse_grad_at_the_marking_threshold(ulps):
+    """A cell whose mf + mg - lse is the threshold itself (unmarked: W =
+    2^64 dlse, the peaks' products ~2^-64) and one fp32 step of lse past
+    it (marked: the exact term): the plain factored gradient against the
+    JAX kernel's backward (interpret mode) and the direct oracle, on the
+    same lse."""
+    f, g, dl, lse, mf, mg = _at_threshold(ulps)
+    ft, gt, dlt = (torch.from_numpy(a) for a in (f, g, dl))
+    marked = TJ.grad_marks(lse, dlt, mf, mg)
+    assert bool(marked[0, 1, 2]) == (ulps > 0)
+    assert int(marked.sum()) == (ulps > 0)
+    df, dg = TJ.pairwise_lse_grad(ft, gt, lse, dlt, mf, mg)
+    jdf, jdg = JJ._lse_bwd_impl(jnp.asarray(f), jnp.asarray(g),
+                                jnp.asarray(lse.numpy()), jnp.asarray(dl),
+                                True)
+    np.testing.assert_allclose(df.numpy(), np.asarray(jdf), **GRAD_TOL)
+    np.testing.assert_allclose(dg.numpy(), np.asarray(jdg), **GRAD_TOL)
+    rf, rg = TJ.pairwise_lse_grad_reference(ft, gt, lse, dlt)
+    np.testing.assert_allclose(df.numpy(), rf.numpy(), **GRAD_TOL)
+    np.testing.assert_allclose(dg.numpy(), rg.numpy(), **GRAD_TOL)
+    # the cell's own term is large: the threshold cell carries weight
+    assert abs(float(rf[0, 1, 2])) > 1e-2
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_pairwise_lse_grad_factored_is_nearer_exact_at_large_logits(seed):
+    """g's rows peaking at 30 to 112 (as a trained prediction net's can),
+    f small: the factored gradient, its exponent mf + mg - lse taken with
+    the rounding of mf + mg put back, lies within 2e-6 of the exact sums
+    (fp64 from the same lse) and at least 5x nearer them than the direct
+    fp32 form, whose f + g rounds at the peaks' ulp (read 15-25x)."""
+    rng = np.random.default_rng(seed)
+    f = (rng.normal(size=(2, 9, 19)) * 0.1).astype(np.float32)
+    g = rng.normal(size=(2, 5, 19)).astype(np.float32)
+    g[:, :, 0] += np.linspace(30, 112, 5, dtype=np.float32)
+    ft, gt, dlt = (torch.from_numpy(a) for a in
+                   (f, g, rng.normal(size=(2, 9, 5)).astype(np.float32)))
+    lse, mf, mg = TJ.pairwise_lse(ft, gt)
+    exact = [torch.zeros((2, 9, 19), dtype=torch.float64),
+             torch.zeros((2, 5, 19), dtype=torch.float64)]
+    for u in range(5):
+        p = torch.exp(ft.double() + gt[:, u, None].double() -
+                      lse[:, :, u, None].double()) * \
+            dlt[:, :, u, None].double()
+        exact[0] += p
+        exact[1][:, u] = p.sum(dim=1)
+
+    def err(grads):
+        return max((a.double() - b).abs().max().item()
+                   for a, b in zip(grads, exact))
+    factored = err(TJ.pairwise_lse_grad(ft, gt, lse, dlt, mf, mg))
+    direct = err(TJ.pairwise_lse_grad_reference(ft, gt, lse, dlt))
+    assert factored <= 2e-6 and 5 * factored <= direct, (factored, direct)
+
+
+def test_pairwise_lse_grad_at_long_targets():
+    """U+1 = 2049 (the parent kernel refused past 1,816): the plain
+    factored gradient against the direct oracle only (the JAX kernel
+    unrolls U+1 in Python, minutes to trace at this size)."""
+    f, g, dl = _fg(8, N=1, T=3, U1=2049, V=20)
+    ft, gt, dlt = (torch.from_numpy(a) for a in (f, g, dl))
+    lse, mf, mg = TJ.pairwise_lse(ft, gt)
+    df, dg = TJ.pairwise_lse_grad(ft, gt, lse, dlt, mf, mg)
+    rf, rg = TJ.pairwise_lse_grad_reference(ft, gt, lse, dlt)
+    np.testing.assert_allclose(df.numpy(), rf.numpy(), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(dg.numpy(), rg.numpy(), atol=1e-5, rtol=1e-5)
+
+
 # ------------------------------------------------------------- decoder
 
 @pytest.fixture(scope="module")
