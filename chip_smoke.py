@@ -209,20 +209,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      utt/s
  29. kernels K1, K1 with residuals and K2 in fp32 at hal's (256, 64,
      2048) (the rnnlm arch, --bptt-len 256, --batch-size 64): the fp32
-     route (fma_step), exactly T per-step kernels a K1 call and T + 1 a K2
-     call (counted from a profile), the same bits twice, the plain
-     versions within LSTM_TOL["float32"] and two planted faults each
-     beyond it (K1: one 32-wide k slice of a step's product left out, c
-     not carried into a step; K2: a k slice of dgates . W left out, dc not
-     carried), times beside plain, cuDNN fp32's recurrence alone (TF32
-     off; nn.LSTM on inputs of width 1 with frozen weights, as K1 gets x
-     projected and K2 stops at dgates; the whole layer printed beside)
-     and the bound
+     persistent route (persist_f32), exactly one kernel a call (counted
+     from a profile), the same bits twice and with every slice of W
+     streamed (the plan's resident split changes no sum), the plain
+     versions within LSTM_TOL["float32"] and three planted faults each
+     beyond it (K1: one 32-column ring slice of a step's product left
+     out, c not carried into a step, one block's units on h_(t-2); K2: a
+     slice of dgates . W left out, dc not carried, one cluster's units on
+     a step-old dgates), times beside plain, cuDNN fp32's recurrence alone
+     (TF32 off; nn.LSTM on inputs of width 1 with frozen weights, as K1
+     gets x projected and K2 stops at dgates; the whole layer printed
+     beside) and the bound; K1 at a completion token (T = 1, B = 1)
  30. hal through its entry point (rnnlm.main) at 1 x 2048, B = 64, T =
      256 on seeded synthetic text: 5 steps, --save, --complete (counts
      reset just before, read just after: K1 with residuals and K2 5 each,
      K1 once for each completion's prompt and once a sampled token, all
-     on fma_step); exact stream resume (5 steps straight against 3,
+     on persist_f32); exact stream resume (5 steps straight against 3,
      --init and 2 more: params, moments, state, carried token bit for
      bit); one step's loss and gradient against the plain path (HAL_LOSS_TOL,
      HAL_GRAD_GAP), beside a planted fault (the state not carried) that
@@ -1513,11 +1515,12 @@ def reset_counts():
 def check_persistent(path, also=()):
     """Every K1 and K2 call (and K1-q8 and K2-q8) since reset_counts took
     the persistent kernels (the main paths' widths, 1536, 1024 and 512, in
-    bf16), or a route named in ``also``."""
+    bf16; fp32 on persist_f32), or a route named in ``also``."""
     from haloop_tpu_torch.nn import lstm_cuda
     taken = {k: v for k, v in lstm_cuda.route_launches.items() if v}
     print(f"{path}: K1/K2 launches by route {taken}", flush=True)
-    check(taken and all(k.endswith("_persist") or k in also for k in taken),
+    check(taken and all(k.endswith(("_persist", "_persist_f32")) or k in also
+                        for k in taken),
           f"{path}: K1/K2 did not all take the persistent kernels: {taken}")
 
 
@@ -4985,41 +4988,61 @@ HAL_CORPUS_BYTES = 8 * 64 * 256
 # stream's state not carried into the chunk)
 HAL_LOSS_TOL = 1e-5
 HAL_GRAD_GAP = 1e-6
+# the prompt hal completes in phase 30
+HAL_PROMPT = "the "
 
 
-def lstm_fp32_faults(torch, w, xp, h0, c0):
-    """Planted faults of K1 in fp32 (plain lstm_scan with one change) ->
-    {name: ys}: one 32-wide k slice of step 100's recurrent product left
-    out (what a tile the kernel's loop skips computes), and c not carried
-    into step 100 (a cell that reads c0 again)."""
+def k1_fp32_slice_out(torch, w, xp, h0, c0, step):
+    """A planted fault of K1 in fp32: plain lstm_scan with one 32-column
+    ring slice (h's columns 64..95) of step ``step``'s recurrent product
+    left out, what a slot the kernel's loop skips computes. Returns ys."""
     T, B, H4 = xp.shape
     H = H4 // 4
-    out = {}
-    for name in ("k slice 64..95 of step 100 left out",
-                 "c not carried into step 100"):
-        h, c = h0.float(), c0.float()
-        ys = torch.empty((T, B, H), device=xp.device)
-        for t in range(T):
-            hk = h
-            if t == 100 and name.startswith("k slice"):
-                hk = h.clone()
-                hk[:, 64:96] = 0
-            if t == 100 and name.startswith("c not"):
-                c = c0.float()
-            i, f, g, o = (xp[t].float() + hk @ w.float().T).chunk(4, -1)
-            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-            h = torch.sigmoid(o) * torch.tanh(c)
-            ys[t] = h
-        out[name] = ys
-    return out
+    h, c = h0.float(), c0.float()
+    ys = torch.empty((T, B, H), device=xp.device)
+    for t in range(T):
+        hk = h
+        if t == step:
+            hk = h.clone()
+            hk[:, 64:96] = 0
+        i, f, g, o = (xp[t].float() + hk @ w.float().T).chunk(4, -1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        ys[t] = h
+    return ys
 
 
-def k2_fp32_faults(torch, dys, acts, c_prev, cs, w, dh_last, dc_last):
-    """Planted faults of K2 in fp32 -> {name: dgates}: one 32-wide k
-    slice of dgates[101] . W left out of dh at step 100, and dc not
-    carried from step 101 into step 100."""
+def lstm_fp32_faults(torch, w, xp, h0, c0, units):
+    """Planted faults of K1 in fp32 (plain lstm_scan with one change) ->
+    {name: ys}: one 32-column ring slice of step 100's recurrent product
+    left out, c not carried into step 100 (a cell that reads c0 again),
+    and ``units`` (one block's) on h_(t-2) from the third step on (a
+    missing grid barrier)."""
+    T, B, H4 = xp.shape
+    H = H4 // 4
+    h, c = h0.float(), c0.float()
+    ys = torch.empty((T, B, H), device=xp.device)
+    for t in range(T):
+        if t == 100:
+            c = c0.float()
+        i, f, g, o = (xp[t].float() + h @ w.float().T).chunk(4, -1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        ys[t] = h
+    return {"ring slice 64..95 of step 100 left out":
+            k1_fp32_slice_out(torch, w, xp, h0, c0, 100),
+            "c not carried into step 100": ys,
+            f"units {int(units[0])}..{int(units[-1])} on h_(t-2)":
+            k1_stale_h(torch, w, xp, h0, c0, units)}
+
+
+def k2_fp32_faults(torch, dys, acts, c_prev, cs, w, dh_last, dc_last, units):
+    """Planted faults of K2 in fp32 -> {name: dgates}: one 32-column ring
+    slice of dgates[101] . W left out of dh at step 100, dc not carried
+    from step 101 into step 100, and ``units`` (one cluster's) on the
+    dgates of the step before the right one (a missing grid barrier)."""
     out = {}
-    for name in ("k slice 64..95 of dgates[101] . W left out",
+    for name in ("ring slice 64..95 of dgates[101] . W left out",
                  "dc not carried into step 100"):
         T = acts.shape[0]
         dh, dc = dh_last.float(), dc_last.float()
@@ -5037,36 +5060,113 @@ def k2_fp32_faults(torch, dys, acts, c_prev, cs, w, dh_last, dc_last):
                            dc * i * (1 - g * g), do], dim=-1)
             dgates[t] = d
             dk = d
-            if t == 101 and name.startswith("k slice"):
+            if t == 101 and name.startswith("ring slice"):
                 dk = d.clone()
                 dk[:, 64:96] = 0
             dh = dk @ w.float()
             dc = dc * f
         out[name] = dgates
+    out[f"units {int(units[0])}..{int(units[-1])} on a step-old dgates"] = \
+        k2_stale_share(torch, dys, acts, c_prev, cs, w, dh_last, dc_last,
+                       units)
     return out
 
 
-def fma_kernels(torch, fn):
-    """The per-step CUDA-core kernels (``fma_step``) that one call of fn
-    launched on the card, counted from a profile."""
+def check_completion_k1(torch, dev, H, tol):
+    """K1 in fp32 at hal's completion, B = 1 (the plan of one 8-row batch
+    tile, another compiled kernel than B = 64's): on a prompt as long as
+    phase 30's and on one sampled token, the route, the same bits twice,
+    lstm_scan within ``tol``, and a ring slice of the first step left out
+    beyond it. Returns the largest error of ys, h and c."""
+    from haloop_tpu_torch.nn import lstm, lstm_cuda
+    sms, smem, ncl = lstm_cuda.card(dev)
+    route, plan = lstm_cuda.route("fwd", torch.float32, H, 1, sms, smem,
+                                  ncl["fwd"])
+    print(f"K1 fp32 at a completion (B=1, H={H}): route {route}, {plan}",
+          flush=True)
+    check(route == "persist_f32", f"fp32 fwd at B = 1 took {route}")
+    worst = 0.0
+    for T in (len(HAL_PROMPT), 1):
+        args = lstm_inputs(torch, dev, T, 1, H, torch.float32)
+        got = lstm_cuda.lstm_fwd_cuda(*args)
+        again = lstm_cuda.lstm_fwd_cuda(*args)
+        reads = [within(torch, a, b, tol)
+                 for a, b in zip(got, lstm.lstm_scan(*args))]
+        ok_f, err_f, mean_f = within(
+            torch, got[0], k1_fp32_slice_out(torch, *args, 0), tol)
+        print(f"K1 fp32 at T={T} B=1 H={H}: max|dys|={reads[0][1]:.3e} "
+              f"mean {reads[0][2]:.3e}, max|dh|={reads[1][1]:.3e}, "
+              f"max|dc|={reads[2][1]:.3e}; planted fault (ring slice "
+              f"64..95 of step 0 left out): max|dys|={err_f:.3e} mean "
+              f"{mean_f:.3e}, beyond the limit {not ok_f}", flush=True)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"K1 fp32 at T={T} B=1 gave other bits on a second run")
+        check(all(ok for ok, _, _ in reads),
+              f"K1 fp32 disagrees with lstm_scan at T={T} B=1 H={H}")
+        check(not ok_f, f"K1's planted fault at T={T} B=1 reads within "
+                        "the limit")
+        worst = max(worst, *(err for _, err, _ in reads))
+    return worst
+
+
+def f32_fault_units(torch, dev, kind, H, B):
+    """The hidden units of one block (K1) or one cluster (K2) of the fp32
+    persistent plan at (H, B): the second cluster's first block, or the
+    second cluster."""
+    from haloop_tpu_torch.nn import lstm_cuda
+    sms, smem, ncl = lstm_cuda.card(dev)
+    plan = lstm_cuda.f32_plan(kind, H, B, sms, smem, ncl[kind])
+    cu = plan.c * plan.u
+    return torch.arange(cu, min(cu + (cu if kind == "bwd" else plan.u), H),
+                        device=dev)
+
+
+def kernels_a_call(torch, fn, name):
+    """The device kernels whose name holds ``name`` that one call of fn
+    launched, counted from a profile."""
     _, by_name = profile_step(torch, fn, "one call")
-    return sum(n for name, (n, _) in by_name.items() if "fma_step" in name)
+    return sum(n for k, (n, _) in by_name.items() if name in k)
+
+
+class all_streamed:
+    """nn.lstm_cuda.f32_plan's plans with every slice of W streamed (none
+    resident), for the duration."""
+
+    def __enter__(self):
+        import dataclasses
+        from haloop_tpu_torch.nn import lstm_cuda
+        self.m, self.plan = lstm_cuda, lstm_cuda.f32_plan
+
+        def streamed(*args, **kwargs):
+            p = self.plan(*args, **kwargs)
+            return p and dataclasses.replace(
+                p, nres=0, smem=lstm_cuda.f32_layout(
+                    p.kc, p.n, p.tm, p.tn, p.wk, p.stages, 0))
+        lstm_cuda.f32_plan = streamed
+
+    def __exit__(self, *exc):
+        self.m.f32_plan = self.plan
 
 
 def phase_hal_kernels(torch, dev):
     """K1, K1 with residuals and K2 in fp32 at hal's (256, 64, 2048) on
-    their fp32 route: the route, T (K2: T + 1) per-step launches a call,
-    the same bits twice, the plain versions within LSTM_TOL["float32"]
-    and planted faults beyond it, times beside plain, cuDNN fp32's
-    recurrence alone (TF32 off) and the bound."""
+    their fp32 persistent route: the route and plan, one kernel a call,
+    the same bits twice and with W all streamed, the plain versions within
+    LSTM_TOL["float32"] and planted faults beyond it, times beside plain,
+    cuDNN fp32's recurrence alone (TF32 off) and the bound; K1 at hal's
+    completion (B = 1) checked the same way and timed at one token."""
     from haloop_tpu_torch.nn import lstm, lstm_cuda
     T, B, H = HAL_SHAPE
     tol = LSTM_TOL["float32"]
     shape = f"T={T} B={B} H={H} fp32 (hal)"
     w, xp, h0, c0 = lstm_inputs(torch, dev, T, B, H, torch.float32)
+    sms, smem, ncl = lstm_cuda.card(dev)
     for kind in ("fwd", "bwd"):
-        route, _ = lstm_plan(torch, dev, kind, H, torch.float32)
-        check(route == "fma_step", f"fp32 {kind} took {route}")
+        route, plan = lstm_cuda.route(kind, torch.float32, H, B, sms, smem,
+                                      ncl[kind])
+        print(f"{'K1' if kind == 'fwd' else 'K2'} {shape}: route {route}, "
+              f"{plan}", flush=True)
+        check(route == "persist_f32", f"fp32 {kind} took {route}")
 
     before = dict(lstm_cuda.route_launches)
     ys, h, c = lstm_cuda.lstm_fwd_cuda(w, xp, h0, c0)
@@ -5076,9 +5176,14 @@ def phase_hal_kernels(torch, dev):
     torch.cuda.synchronize()
     took = {k: v - before[k] for k, v in lstm_cuda.route_launches.items()
             if v != before[k]}
-    check(took == {"fwd_fma_step": 3}, f"K1 fp32 took {took}")
+    check(took == {"fwd_persist_f32": 3}, f"K1 fp32 took {took}")
+    with all_streamed():
+        streamed = lstm_cuda.lstm_fwd_cuda(w, xp, h0, c0, residuals=True)
     check(all(torch.equal(a, b) for a, b in zip((ys, h, c), again)),
           "K1 fp32 gave other bits on a second run")
+    check(all(torch.equal(a, b) for a, b in
+              zip((ysr, hr, cr, acts, cs), streamed)),
+          "K1 fp32 with W all streamed gave other bits")
     check(torch.equal(ys, ysr) and torch.equal(h, hr) and torch.equal(c, cr),
           "K1 fp32 with residuals changes ys/h/c")
     ye, he, ce, acts_e, cs_e = lstm.lstm_scan(w, xp, h0, c0, residuals=True)
@@ -5086,13 +5191,16 @@ def phase_hal_kernels(torch, dev):
     ok_h = within(torch, h, he, tol)[0] and within(torch, c, ce, tol)[0]
     ok_a, err_a, _ = within(torch, acts, acts_e, tol)
     ok_c, err_c, _ = within(torch, cs, cs_e, tol)
-    print(f"K1 {shape}: route fma_step, the same bits twice; max|dys|="
-          f"{err:.3e} mean {mean:.3e}; residuals max|dacts|={err_a:.3e} "
-          f"max|dcs|={err_c:.3e} (tol atol={tol['atol']} rtol={tol['rtol']}"
-          f" mean<{tol['mean']})", flush=True)
+    print(f"K1 {shape}: route persist_f32, the same bits twice and with W "
+          f"all streamed; max|dys|={err:.3e} mean {mean:.3e}; residuals "
+          f"max|dacts|={err_a:.3e} max|dcs|={err_c:.3e} (tol atol="
+          f"{tol['atol']} rtol={tol['rtol']} mean<{tol['mean']})",
+          flush=True)
     check(ok and ok_h and ok_a and ok_c,
           f"K1 fp32 disagrees with lstm_scan at {HAL_SHAPE}")
-    for name, bad in lstm_fp32_faults(torch, w, xp, h0, c0).items():
+    for name, bad in lstm_fp32_faults(
+            torch, w, xp, h0, c0,
+            f32_fault_units(torch, dev, "fwd", H, B)).items():
         ok_f, err_f, mean_f = within(torch, ys, bad, tol)
         print(f"K1 {shape} planted fault ({name}): max|dys|={err_f:.3e} "
               f"mean {mean_f:.3e}; beyond the limit {not ok_f}", flush=True)
@@ -5109,35 +5217,42 @@ def phase_hal_kernels(torch, dev):
     torch.cuda.synchronize()
     took = {k: v - before[k] for k, v in lstm_cuda.route_launches.items()
             if v != before[k]}
-    check(took == {"bwd_fma_step": 2}, f"K2 fp32 took {took}")
+    check(took == {"bwd_persist_f32": 2}, f"K2 fp32 took {took}")
+    with all_streamed():
+        streamed = lstm_cuda.lstm_bwd_cuda(dys, acts_e, cs_e, c0, w, dh, dc)
     check(all(torch.equal(a, b) for a, b in zip((dg, dh0, dc0), again)),
           "K2 fp32 gave other bits on a second run")
+    check(all(torch.equal(a, b) for a, b in zip((dg, dh0, dc0), streamed)),
+          "K2 fp32 with W all streamed gave other bits")
     dg_e, dh0_e, dc0_e = lstm.lstm_scan_bwd(dys, acts_e, c_prev, cs_e, w,
                                             dh, dc)
     ok, err_g, mean_g = within(torch, dg, dg_e, tol)
     ok_h = within(torch, dh0, dh0_e, tol)[0] and \
         within(torch, dc0, dc0_e, tol)[0]
-    print(f"K2 {shape}: route fma_step, the same bits twice; max|ddgates|="
-          f"{err_g:.3e} mean {mean_g:.3e}", flush=True)
+    print(f"K2 {shape}: route persist_f32, the same bits twice and with W "
+          f"all streamed; max|ddgates|={err_g:.3e} mean {mean_g:.3e}",
+          flush=True)
     check(ok and ok_h, f"K2 fp32 disagrees with lstm_scan_bwd at {HAL_SHAPE}")
-    for name, bad in k2_fp32_faults(torch, dys, acts_e, c_prev, cs_e, w, dh,
-                                    dc).items():
+    for name, bad in k2_fp32_faults(
+            torch, dys, acts_e, c_prev, cs_e, w, dh, dc,
+            f32_fault_units(torch, dev, "bwd", H, B)).items():
         ok_f, err_f, mean_f = within(torch, dg, bad, tol)
         print(f"K2 {shape} planted fault ({name}): max|ddgates|={err_f:.3e}"
               f" mean {mean_f:.3e}; beyond the limit {not ok_f}", flush=True)
         check(not ok_f, f"K2's planted fault ({name}) reads within the limit")
+    tok_err = check_completion_k1(torch, dev, H, tol)
 
     args = (w, xp, h0, c0)
     bargs = (dys, acts_e, cs_e, c0, w, dh, dc)
-    steps = {name: fma_kernels(torch, fn) for name, fn in (
+    calls = {name: kernels_a_call(torch, fn, "persist_f32") for name, fn in (
         ("K1", lambda: lstm_cuda.lstm_fwd_cuda(*args)),
         ("K1-residual", lambda: lstm_cuda.lstm_fwd_cuda(*args,
                                                         residuals=True)),
         ("K2", lambda: lstm_cuda.lstm_bwd_cuda(*bargs)))}
-    print(f"fma_step kernels a layer call at {shape}: {steps} (K1: T = {T}; "
-          f"K2: T + 1, the last for dh0)", flush=True)
-    check(steps == {"K1": T, "K1-residual": T, "K2": T + 1},
-          f"per-step launches {steps}")
+    print(f"persist_f32 kernels a layer call at {shape}: {calls} (PR 19's "
+          f"fma_step route: T = {T} a K1 call, T + 1 a K2 call)", flush=True)
+    check(calls == {"K1": 1, "K1-residual": 1, "K2": 1},
+          f"fp32 kernels a call {calls}")
 
     ms = cuda_ms(lambda: lstm_cuda.lstm_fwd_cuda(*args))
     plain_ms = cuda_ms(lambda: lstm.lstm_scan(*args))
@@ -5146,6 +5261,12 @@ def phase_hal_kernels(torch, dev):
     bms = cuda_ms(lambda: lstm_cuda.lstm_bwd_cuda(*bargs))
     bplain = cuda_ms(lambda: lstm.lstm_scan_bwd(dys, acts_e, c_prev, cs_e, w,
                                                 dh, dc))
+    # a completion token: K1 at T = 1, B = 1 (hal's --complete)
+    w1, xp1, h1, c1 = lstm_inputs(torch, dev, 1, 1, H, torch.float32)
+    tok_ms = cuda_ms(lambda: lstm_cuda.lstm_fwd_cuda(w1, xp1, h1, c1))
+    tok_b, tok_by = k1_bound(1, 1, H, 4)
+    print(f"K1 fp32 at a completion token (T=1, B=1, H={H}): kernel "
+          f"{tok_ms:.4f} ms, bound {tok_b:.4f} ms ({tok_by})", flush=True)
     # the yardstick: cuDNN's recurrence alone. K1 gets x already
     # projected and K2 stops at dgates, so cuDNN gets inputs of width 1
     # (its input GEMM and dx next to nothing) and frozen weights (no dW);
@@ -5172,14 +5293,17 @@ def phase_hal_kernels(torch, dev):
              k1_bound(T, B, H, 4, residuals=True)),
             ("K2", bms, bplain, "backward", k2_bound(T, B, H, 4))):
         print(f"{name} {shape}: kernel {t:.3f} ms, plain {p:.3f} ms, cuDNN "
-              f"fp32 recurrence alone ({lib_what}) {lib[name]:.3f} ms, the "
-              f"whole nn.LSTM(H, H) layer {layer[name]:.3f} ms, bound "
-              f"{b_ms:.3f} ms ({b_by})", flush=True)
+              f"fp32 recurrence alone ({lib_what}) {lib[name]:.3f} ms "
+              f"({'faster' if t < lib[name] else 'slower'}), the whole "
+              f"nn.LSTM(H, H) layer {layer[name]:.3f} ms, bound {b_ms:.3f} "
+              f"ms ({b_by}), {b_ms / t:.1%} of it", flush=True)
         reports[name] = dict(
             max_abs_err={"K1": err, "K1-residual": max(err_a, err_c),
                          "K2": err_g}[name], ms=t, plain_ms=p,
             bound_ms=b_ms, bound_by=b_by, library_ms=lib[name],
-            layer_ms=layer[name], launches_a_call=steps[name])
+            layer_ms=layer[name], launches_a_call=calls[name])
+    reports["K1"]["completion_token_ms"] = tok_ms
+    reports["K1"]["completion_max_abs_err"] = tok_err
     return shape, reports
 
 
@@ -5226,7 +5350,8 @@ def phase_hal(torch, dev, tmp, card):
     """hal through its entry point at the rnnlm arch's 1 x 2048, B = 64,
     T = 256, fp32: 5 steps, a checkpoint and a completion (counts reset
     just before, read just after: K1 with residuals and K2 once a step,
-    K1 once for the prompt and once a sampled token, all on fma_step);
+    K1 once for the prompt and once a sampled token, all on
+    persist_f32);
     exact stream resume (5 steps straight against 3, --init and 2 more);
     one step's loss and gradient against the plain path; train and
     completion tokens/s and a profile of one step. Returns (the launches,
@@ -5235,7 +5360,7 @@ def phase_hal(torch, dev, tmp, card):
     T, B, H = HAL_SHAPE
     corpus = hal_corpus(tmp)
     lm = Path(tmp) / "hal_lm.pt"
-    prompt = "the "
+    prompt = HAL_PROMPT
     flags = ["--train", f"bytes:{corpus}", "--rnn-size", str(H),
              "--num-layers", "1", "--batch-size", str(B), "--bptt-len",
              str(T)]
@@ -5259,8 +5384,8 @@ def phase_hal(torch, dev, tmp, card):
     completions = 4 * (1 + T)
     check_counts("hal", launches, dict(lstm_fwd_residual=5, lstm_bwd=5,
                                        lstm_fwd=completions))
-    check(routes == {"fwd_fma_step": 5 + completions, "bwd_fma_step": 5},
-          f"hal: K1/K2 routes {routes}")
+    check(routes == {"fwd_persist_f32": 5 + completions,
+                     "bwd_persist_f32": 5}, f"hal: K1/K2 routes {routes}")
     losses = [float(x) for x in re.findall(r"loss: ([\d.]+)", out)]
     check(len(lines) == 3 and all(map(math.isfinite, losses)) and
           f"saving {lm}" in out and lm.exists() and "mean bpc" in out,

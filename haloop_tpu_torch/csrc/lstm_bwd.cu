@@ -48,6 +48,14 @@
 // more product in the same launch. The grid barrier is a counter word the
 // wrapper zeroes (release/acquire at gpu scope; its spin traps after tens
 // of seconds). At a batch over 48 rows a step loops over 48-row tiles.
+// fp32 (hal; persist_f32 below, on persist_f32.cuh): the same launch in
+// clusters of 8, dh0 in it, exact fp32 FFMA products (no TF32), as
+// lstm_fwd.cu's fp32 kernel: W^T's columns resident as far as the plan's
+// shared memory allows (8 of a block's 32 slices at hal's shape, 120
+// blocks of 8 x 18 units) and the rest streamed with each step's dgates
+// through a TMA ring; a register tile of 8 batch rows x 9 units a thread
+// in two k groups whose partial slabs are summed in order; one cell a lane
+// for the delta; dgates[t] before the grid arrive, dc after it.
 // Other routes, chosen by the wrapper before the launch (nn/lstm_cuda.py
 // route), one launch a step and one more for dh0, a block owning 16 units
 // for 64 batch rows:
@@ -55,15 +63,17 @@
 //    tensor cores (WMMA 16x16x16, fp32 accumulators), dgates[t+1] and W^T
 //    streamed through shared memory in 128-wide K slices by a 4-stage
 //    cp.async pipeline, 4 warps.
-//  * fp32 (parity runs), or H % 8 != 0: fma_step, CUDA-core FMAs in fp32;
-//    each thread owns one unit for 4 batch rows and reads 32-wide k-major
-//    slices from shared memory, fetching the next slice meanwhile.
+//  * H % 8 != 0 in bf16 (fp32 takes persist_f32 at every width its plan
+//    tiles): fma_step, CUDA-core FMAs in fp32; each thread owns one unit
+//    for 4 batch rows and reads 32-wide k-major slices from shared memory,
+//    fetching the next slice meanwhile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 
 #include "persist.cuh"
+#include "persist_f32.cuh"
 
 namespace {
 
@@ -120,25 +130,31 @@ __device__ __forceinline__ Cell load_cell(const Step<T>& p, size_t b, int j,
   return x;
 }
 
-// The elementwise delta of cell (b, j) given dh_rec, the recurrent part
-// of dh: writes the four gate deltas and the carried dc.
+// The elementwise delta of a cell given dh_rec, the recurrent part of
+// dh: the four gate deltas (i, f, g, o) into d; returns the carried dc.
+__device__ __forceinline__ float delta(const Cell& x, float dh_rec,
+                                       float (&d)[4]) {
+  const float dh = dh_rec + x.dy;
+  const float tc = tanhf(x.c);
+  d[3] = dh * tc * x.o * (1.f - x.o);
+  const float dc = x.dc + dh * x.o * (1.f - tc * tc);
+  d[0] = dc * x.g * x.i * (1.f - x.i);
+  d[1] = dc * x.cp * x.f * (1.f - x.f);
+  d[2] = dc * x.i * (1.f - x.g * x.g);
+  return dc * x.f;
+}
+
+// delta for cell (b, j): writes the four gate deltas and the carried dc.
 template <typename T>
 __device__ __forceinline__ void cell_delta(const Step<T>& p, const Cell& x,
                                            float dh_rec, size_t b, int j,
                                            int H) {
-  const float dh = dh_rec + x.dy;
-  const float tc = tanhf(x.c);
-  const float d_o = dh * tc * x.o * (1.f - x.o);
-  const float dc = x.dc + dh * x.o * (1.f - tc * tc);
-  const float di = dc * x.g * x.i * (1.f - x.i);
-  const float df = dc * x.cp * x.f * (1.f - x.f);
-  const float dg = dc * x.i * (1.f - x.g * x.g);
-  T* d = p.dg_out + b * 4 * H + j;
-  d[0] = from_float<T>(di);
-  d[H] = from_float<T>(df);
-  d[2 * H] = from_float<T>(dg);
-  d[3 * H] = from_float<T>(d_o);
-  p.dc[b * H + j] = dc * x.f;
+  float d[4];
+  const float dc = delta(x, dh_rec, d);
+  T* o = p.dg_out + b * 4 * H + j;
+#pragma unroll
+  for (int g = 0; g < 4; ++g) o[g * H] = from_float<T>(d[g]);
+  p.dc[b * H + j] = dc;
 }
 
 // ------------------------------------------------ CUDA-core FMA step
@@ -432,6 +448,8 @@ bwd(const bf16* __restrict__ dys, const bf16* __restrict__ acts,
   const int lw0 = first_loader(p.nw, p.wk);
   init_ring(bars, p.stages, lw0);
   const size_t g4 = (size_t)B * K, g1 = (size_t)B * H;
+  // phase stamps (-DHL_PHASES only): block 0's thread 0, each product
+  const bool on = blockIdx.x == 0 && threadIdx.x == 0;
   hl::cluster_arrive();                     // the partials are free
   for (int s = 0; s <= T; ++s) {
     const int t = T - 1 - s;    // the step whose delta follows; -1: dh0
@@ -460,7 +478,9 @@ bwd(const bf16* __restrict__ dys, const bf16* __restrict__ acts,
         }
       }
       if (s > 0) {              // dh_rec = dgates[t+1] . W
+        hl::keep_phase(on && b0 == 0, 0, s, hl::stamp());
         if (b0 == 0) grid_wait(bar, (unsigned)s * gridDim.x);
+        hl::keep_phase(on && b0 == 0, 1, s, hl::stamp());
         float acc[NPW][MT][4];
 #pragma unroll
         for (int j = 0; j < NPW; ++j)
@@ -471,16 +491,19 @@ bwd(const bf16* __restrict__ dys, const bf16* __restrict__ acts,
         hl::cluster_wait();     // the cluster is done with the partials
         product<NPW>(dgates + (t + 1) * g4, K, k0, cols, b0, rows, p.kc,
                      w_s, x_s, bars, p.stages, par, ng, wkg, p.wk, lw0, acc);
+        hl::keep_phase(on && b0 == 0, 2, s, hl::stamp());
         if (wkg < p.wk) store_partial<NPW>(p_s, p.n, p.u, cu, ng, wkg, acc);
         fold_slabs(p_s, p.n, p.wk);
         hl::cluster_arrive();
         hl::cluster_wait();     // every block's partials are written
+        hl::keep_phase(on && b0 == 0, 3, s, hl::stamp());
         float4 v[CL];           // the cells' dh_rec from the CL blocks
         if (live) {
           gather(v, peer, rank * BM * p.u + i0);
 #pragma unroll
           for (int e = 0; e < GC; ++e) dhr[e] = rank_sum(v, e);
         }
+        hl::keep_phase(on && b0 == 0, 4, s, hl::stamp());
         hl::cluster_arrive();   // this block is done with the partials
       }
 #pragma unroll
@@ -496,6 +519,7 @@ bwd(const bf16* __restrict__ dys, const bf16* __restrict__ acts,
       }
     }
     if (t >= 0) grid_arrive(bar);
+    hl::keep_phase(on, 5, s, hl::stamp());
   }
   hl::cluster_wait();           // no block leaves while a peer reads it
 }
@@ -529,6 +553,187 @@ cudaError_t run_plan(const bf16* dys, const bf16* acts, const bf16* cs,
 }
 
 }  // namespace persist_step
+
+// --------------------------------------- persistent (fp32) kernel
+
+namespace persist_f32 {
+
+using namespace hl::pf32;
+
+// the grid is p.clusters clusters of p.c == CL blocks
+constexpr int CL = 8;
+
+template <int TM, int TN, int WK>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd(const __grid_constant__ CUtensorMap wmap,   // W^T (4H, H)
+    const __grid_constant__ CUtensorMap dgmap,  // dgates (4H, B, T)
+    const float* __restrict__ dys, const float* __restrict__ acts,
+    const float* __restrict__ cs, const float* __restrict__ c0,
+    const float* __restrict__ dh_init, float* __restrict__ dc,
+    float* __restrict__ dgates, float* __restrict__ dh0,
+    unsigned* __restrict__ bar, int T, int B, int H, const Plan p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  constexpr int BM = 8 * TM;
+  const Layout lay(p);
+  const uint32_t base =
+      (hl::smem_u32(smem_raw) + 1023) & ~1023u;   // the first 1 KB boundary
+  float* p_s = reinterpret_cast<float*>(
+      smem_raw + (base - hl::smem_u32(smem_raw)) + lay.region);
+  const int cu = p.c * p.u;
+  const int rank = static_cast<int>(hl::cluster_rank());
+  const int j0 = (blockIdx.x / p.c) * cu;   // the cluster's first unit
+  const int ju = j0 + rank * p.u;           // this block's first unit
+  const int nu = max(0, min(p.u, H - ju));  // and how many it has
+  const Geo<WK> g;
+  // W rows: W^T's rows of the cluster's units, columns from rank kc
+  Ring<2> rg{base + lay.region, base, base + lay.bars, &wmap, lay.slot,
+             lay.hpart, lay.wrows, p.n * ROW, p.stages, lay.nsl, lay.nstr,
+             rank * p.kc, j0, 0u};
+  rg.init();
+  rg.prefetch();
+
+  const size_t g4 = (size_t)B * 4 * H, g1 = (size_t)B * H;
+  // phase stamps (-DHL_PHASES only): block 0's thread 0, each product
+  const bool on = blockIdx.x == 0 && threadIdx.x == 0;
+  for (int s = 0; s <= T; ++s) {
+    const int t = T - 1 - s;    // the step whose delta follows; -1: dh0
+    for (int b0 = 0; b0 < B; b0 += BM) {
+      const int rows = min(BM, B - b0);
+      const bool stp = on && b0 == 0, last = b0 + BM >= B;
+      if (s > 0) {              // dh_rec = dgates[t+1] . W
+        long long waited = 0, first = 0;
+        hl::keep_phase(stp, 0, s, hl::stamp());
+        if (b0 == 0) hl::persist::grid_wait(bar, (unsigned)s * gridDim.x);
+        hl::keep_phase(stp, 1, s, hl::stamp());
+        float acc[TM][TN];
+        product<TM, TN, WK>(rg, &dgmap, b0, t + 1, g, acc, waited, first);
+        hl::keep_phase(stp, 2, s, waited);
+        hl::keep_phase(stp, 7, s, first);
+        hl::keep_phase(stp, 3, s, hl::stamp());
+        store_partials<TM, TN, WK>(p_s, p.n, p.u, cu, 1, BM, g, acc);
+        fold(p_s, BM * p.n, p.wk);
+      }
+      // this thread's cells: i = tid + THREADS e of the block's BM u, cell
+      // (b0 + i / u, ju + i % u), so that a warp's loads and stores run
+      // along a row's units: their residuals and dc (and dh_last at the
+      // first step), loaded while the cluster's partials finish
+      Step<float> sp{};
+      if (t >= 0)
+        sp = Step<float>{nullptr, nullptr, dh_init, dys + t * g1,
+                         acts + t * g4, cs + t * g1,
+                         t ? cs + (t - 1) * g1 : c0, dc, dgates + t * g4,
+                         dh0};
+      Cell cell[CMAX];
+      float dhr[CMAX];
+#pragma unroll
+      for (int e = 0; e < CMAX; ++e) {
+        const int i = threadIdx.x + THREADS * e;
+        const int b = i / p.u, jl = i % p.u;
+        dhr[e] = 0.f;
+        if (i < BM * p.u && b < rows && jl < nu) {
+          const size_t bb = b0 + b;
+          if (t >= 0) cell[e] = load_cell(sp, bb, ju + jl, H);
+          if (s == 0) dhr[e] = dh_init[bb * H + ju + jl];
+        }
+      }
+      if (s > 0) {
+        hl::cluster_arrive();
+        hl::cluster_wait();       // every block's partials are written
+        uint32_t peer[CL];        // the partials of the cluster
+        hl::persist::peers(peer, hl::smem_addr(p_s));
+#pragma unroll
+        for (int e = 0; e < CMAX; ++e) {
+          const int i = threadIdx.x + THREADS * e;
+          if (i >= BM * p.u) continue;
+          // the CL blocks' partials summed in rank order
+          const uint32_t off = 4u * (rank * BM * p.u + i);
+          float v[CL];
+#pragma unroll
+          for (int r = 0; r < CL; ++r) v[r] = hl::ld_cluster(peer[r] + off);
+          float sum = 0.f;
+#pragma unroll
+          for (int r = 0; r < CL; ++r) sum += v[r];
+          dhr[e] = sum;
+        }
+        hl::cluster_arrive();     // this block is done with the partials
+        hl::keep_phase(stp, 4, s, hl::stamp());
+      }
+      // the cells: dgates[t] (the next product's rows, read by every
+      // block) before the grid arrive; dc, which only this thread reads,
+      // and dh0 after it
+      float dcv[CMAX];
+#pragma unroll
+      for (int e = 0; e < CMAX; ++e) {
+        const int i = threadIdx.x + THREADS * e;
+        const int b = i / p.u, jl = i % p.u;
+        if (t >= 0 && i < BM * p.u && b < rows && jl < nu) {
+          float d[4];
+          dcv[e] = delta(cell[e], dhr[e], d);
+          float* o = sp.dg_out + (size_t)(b0 + b) * 4 * H + ju + jl;
+#pragma unroll
+          for (int gt = 0; gt < 4; ++gt) o[gt * H] = d[gt];
+        }
+      }
+      if (last && t >= 0) hl::persist::grid_arrive(bar);
+#pragma unroll
+      for (int e = 0; e < CMAX; ++e) {
+        const int i = threadIdx.x + THREADS * e;
+        const int b = i / p.u, jl = i % p.u;
+        if (i < BM * p.u && b < rows && jl < nu) {
+          const size_t o = (size_t)(b0 + b) * H + ju + jl;
+          if (t >= 0)
+            dc[o] = dcv[e];
+          else
+            dh0[o] = dhr[e];
+        }
+      }
+      hl::keep_phase(stp, 5, s, hl::stamp());
+      if (s > 0) {
+        hl::cluster_wait();       // the peers are done with these partials
+        if (s < T || !last) rg.prefetch();
+      }
+      hl::keep_phase(stp, 6, s, hl::stamp());
+    }
+  }
+}
+
+template <int TM, int TN, int WK>
+cudaError_t run(const CUtensorMap& wm, const CUtensorMap& dm,
+                const float* dys, const float* acts, const float* cs,
+                const float* c0, const float* dh_init, float* dc,
+                float* dgates, float* dh0, unsigned* bar, int T_, int B,
+                int H, const Plan& p, cudaStream_t stream) {
+  return hl::persist::launch(bwd<TM, TN, WK>, p.clusters * p.c, p.c, p.smem,
+                             stream, wm, dm, dys, acts, cs, c0, dh_init, dc,
+                             dgates, dh0, bar, T_, B, H, p);
+}
+
+cudaError_t run_plan(const float* dys, const float* acts, const float* cs,
+                     const float* c0, const float* wt, const float* dh_init,
+                     float* dc, float* dgates, float* dh0, unsigned* bar,
+                     int T_, int B, int H, const Plan& p, cudaStream_t s) {
+  if (p.c != CL || Layout(p).size != p.smem || p.c * p.u > 256)
+    return cudaErrorInvalidValue;
+  const cuuint64_t k4 = (cuuint64_t)H * 16;     // a row of 4H, bytes
+  const cuuint64_t wd[2] = {(cuuint64_t)H * 4, (cuuint64_t)H}, ws[1] = {k4},
+                   dd[3] = {(cuuint64_t)H * 4, (cuuint64_t)B, (cuuint64_t)T_},
+                   dst[2] = {k4, k4 * B};
+  const cuuint32_t wb[2] = {KS, (cuuint32_t)(p.c * p.u)},
+                   db[3] = {KS, (cuuint32_t)(8 * p.tm), 1};
+  CUtensorMap wm, dm;
+  if (!hl::slice_map_f32(&wm, wt, 2, wd, ws, wb) ||
+      !hl::slice_map_f32(&dm, dgates, 3, dd, dst, db))
+    return cudaErrorInvalidValue;
+#define HL_F32_RUN(TM_, TN_, WK_)                                          \
+  if (p.tm == TM_ && p.tn == TN_ && p.wk == WK_)                            \
+    return run<TM_, TN_, WK_>(wm, dm, dys, acts, cs, c0, dh_init, dc,       \
+                              dgates, dh0, bar, T_, B, H, p, s);
+  HL_F32_TILES(HL_F32_RUN)
+#undef HL_F32_RUN
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace persist_f32
 
 template <typename T>
 cudaError_t launch(const Step<T>& p, int B, int H, cudaStream_t stream,
@@ -579,10 +784,11 @@ cudaError_t run(const T* dys, const T* acts, const T* cs, const T* c0,
 // in fp32 (bf16 == 0) or bf16; dh_init (B, H) fp32, the carried dh at
 // T-1; dc (B, H) fp32 holds the carried dc at T-1 and is left holding
 // dc0; dgates (T, B, 4H) in the same dtype and dh0 (B, H) fp32 receive
-// the results. T >= 1. plan (host, hl::persist::PLAN_INTS ints) selects
-// the persistent kernel (bf16, H % 8 == 0), with bar a zeroed 32-bit word
-// on the card; null selects the per-step kernels (tc_step for bf16 with
-// H % 8 == 0, else fma_step). Returns the launches' cudaError_t.
+// the results. T >= 1. plan (host ints: hl::persist::PLAN_INTS in bf16,
+// hl::pf32::PLAN_INTS in fp32) selects the persistent kernel (bf16 with
+// H % 8 == 0, or fp32), with bar a zeroed 32-bit word on the card; null
+// selects the per-step kernels (tc_step for bf16 with H % 8 == 0, else
+// fma_step). Returns the launches' cudaError_t.
 extern "C" int hl_lstm_bwd(const void* dys, const void* acts, const void* cs,
                            const void* c0, const void* wt,
                            const void* dh_init, void* dc, void* dgates,
@@ -593,8 +799,16 @@ extern "C" int hl_lstm_bwd(const void* dys, const void* acts, const void* cs,
   float* dcc = static_cast<float*>(dc);
   float* dh0_ = static_cast<float*>(dh0);
   cudaError_t err;
-  if (plan) {
-    if (!bf16_ || H % 8 != 0 || !bar) return cudaErrorInvalidValue;
+  if (plan && !bf16_) {
+    if (!bar) return cudaErrorInvalidValue;
+    err = persist_f32::run_plan(
+        static_cast<const float*>(dys), static_cast<const float*>(acts),
+        static_cast<const float*>(cs), static_cast<const float*>(c0),
+        static_cast<const float*>(wt), dhi, dcc, static_cast<float*>(dgates),
+        dh0_, static_cast<unsigned*>(bar), T, B, H,
+        hl::pf32::read_plan(plan), s);
+  } else if (plan) {
+    if (H % 8 != 0 || !bar) return cudaErrorInvalidValue;
     err = persist_step::run_plan(
         static_cast<const bf16*>(dys), static_cast<const bf16*>(acts),
         static_cast<const bf16*>(cs), static_cast<const bf16*>(c0),
@@ -614,3 +828,8 @@ extern "C" int hl_lstm_bwd(const void* dys, const void* acts, const void* cs,
               false);
   return static_cast<int>(err);
 }
+
+#ifdef HL_PHASES
+// the phase stamps of the last persistent K2 launch (bf16 or fp32)
+extern "C" int hl_lstm_bwd_phases(void* out) { return hl::copy_phases(out); }
+#endif

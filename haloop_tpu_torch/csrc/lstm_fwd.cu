@@ -58,22 +58,42 @@
 // zeroes, release/acquire at gpu scope, a spin that traps after tens of
 // seconds) opens step t+1. At a batch over 48 rows a step loops over
 // 48-row tiles.
+// fp32 (hal's 1 x 2048 and the parity runs; persist_f32 below, on
+// persist_f32.cuh): the products stay exact fp32 FFMA on the CUDA cores, as
+// the TPU kernel's fp32 path is full precision, and W_hh (64 MiB at H =
+// 2048) no longer fits the SMs. The same launch, clusters and fixed-order
+// sums, with: each block's W columns kept resident as far as the plan's
+// shared memory allows (the last 3 of its 16 32-column slices at hal's
+// shape, 116 blocks of 4 x 18 units) and the rest streamed every step
+// through a ring of 128-byte-row slots that TMA fills from one thread
+// (x's rows and W's in each slot, W's issued for the next product before
+// the grid barrier); the product a register tile of 8 batch rows x 9 W
+// rows a thread, float4 operands from the 128 B swizzle, the whole batch
+// of 64 in one tile (an 8-row tile up to B = 8: hal's completion); the
+// partials summed in rank order through distributed shared memory, one
+// cell a lane so that a warp's x_proj loads and ys / residual stores run
+// along a row; ys before the grid arrive, c, the residuals and the last
+// h after it. Bound by its FFMAs (1.07 G a step at hal's shape, ~8.2 ms
+// a call at 67 TFLOP/s); measured on an H100 (scripts/lstm_probe.py
+// --f32 --phases) a step is ~80% product, the rest the cluster exchange,
+// the cell update and the grid barrier.
 // Other routes, chosen by the wrapper before the launch (nn/lstm_cuda.py
 // route), one launch a step:
 //  * bf16 whose W_hh slices do not fit (H above ~1,600 on an H100):
 //    tc_step, tensor cores (WMMA 16x16x16, fp32 accumulators), h and W_hh
 //    streamed through shared memory in 128-wide K slices by a 4-stage
 //    cp.async pipeline; 16 hidden units x 64 batch rows a block, 8 warps.
-//  * fp32 (parity runs), or H % 8 != 0: fma_step, the same block shape
-//    with CUDA-core FMAs in fp32; each thread owns one unit's four gates
-//    for 4 batch rows, reads 32-wide k-major slices from shared memory,
-//    and fetches the next slice into registers meanwhile.
+//  * H % 8 != 0 in bf16, or H % 4 != 0 in fp32: fma_step, the same block
+//    shape with CUDA-core FMAs in fp32; each thread owns one unit's four
+//    gates for 4 batch rows, reads 32-wide k-major slices from shared
+//    memory, and fetches the next slice into registers meanwhile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 
 #include "persist.cuh"
+#include "persist_f32.cuh"
 
 namespace {
 
@@ -100,14 +120,25 @@ __device__ __forceinline__ float sigmoid(float x) {
 // recurrent product) of cell (b, j): updates c in place, stores the
 // residuals when asked (acts/cs non-null: row b of this step's (B, 4H)
 // and (B, H) slices) and returns the new h.
+// i, f, g, o of a cell's four gate pre-activations, and the new c
+__device__ __forceinline__ void activate(float zi, float zf, float zg,
+                                         float zo, float (&a)[4],
+                                         float& c) {
+  a[0] = sigmoid(zi);
+  a[1] = sigmoid(zf);
+  a[2] = tanhf(zg);
+  a[3] = sigmoid(zo);
+  c = a[1] * c + a[0] * a[2];
+}
+
 template <typename T>
 __device__ __forceinline__ float cell_update(float zi, float zf, float zg,
                                              float zo, float& c, T* acts,
                                              T* cs, size_t b, int j,
                                              int H) {
-  const float i = sigmoid(zi), f = sigmoid(zf), g = tanhf(zg);
-  const float o = sigmoid(zo);
-  c = f * c + i * g;
+  float a[4];
+  activate(zi, zf, zg, zo, a, c);
+  const float i = a[0], f = a[1], g = a[2], o = a[3];
   if (acts) {
     T* a = acts + b * 4 * H + j;
     a[0] = from_float<T>(i);
@@ -450,6 +481,8 @@ fwd(const bf16* __restrict__ xp, const bf16* __restrict__ w,
   const int lw0 = first_loader(p.nw, p.wk);
   init_ring(bars, p.stages, lw0);
   const size_t in = (size_t)B * 4 * H, out = (size_t)B * H;
+  // phase stamps (-DHL_PHASES only): block 0's thread 0, each step
+  const bool on = blockIdx.x == 0 && threadIdx.x == 0;
   hl::cluster_arrive();                     // the partials are free
   for (int t = 0; t < T; ++t) {
     const bf16* h = t ? ys + (t - 1) * out : h0;
@@ -474,7 +507,9 @@ fwd(const bf16* __restrict__ xp, const bf16* __restrict__ w,
           cv[e] = c[(size_t)(b0 + b) * H + ju + jl];
         }
       }
+      hl::keep_phase(on && b0 == 0, 0, t, hl::stamp());
       if (t > 0 && b0 == 0) grid_wait(bar, (unsigned)t * gridDim.x);
+      hl::keep_phase(on && b0 == 0, 1, t, hl::stamp());
 
       float acc[NPW][MT][4];
 #pragma unroll
@@ -486,10 +521,12 @@ fwd(const bf16* __restrict__ xp, const bf16* __restrict__ w,
       hl::cluster_wait();         // the cluster is done with the partials
       product<NPW>(h, H, k0, cols, b0, rows, p.kc, w_s, x_s, bars, p.stages,
                    par, ng, wkg, p.wk, lw0, acc);
+      hl::keep_phase(on && b0 == 0, 2, t, hl::stamp());
       if (wkg < p.wk) store_partial<NPW>(p_s, p.n, p.u, cu, ng, wkg, acc);
       fold_slabs(p_s, p.n, p.wk);
       hl::cluster_arrive();
       hl::cluster_wait();         // every block's partials are written
+      hl::keep_phase(on && b0 == 0, 3, t, hl::stamp());
 
       float4 v[4][CL];            // the cells' gates from the CL blocks
       if (live)
@@ -514,9 +551,11 @@ fwd(const bf16* __restrict__ xp, const bf16* __restrict__ w,
           if (t == T - 1) h_last[o] = hn;
         }
       }
+      hl::keep_phase(on && b0 == 0, 4, t, hl::stamp());
       hl::cluster_arrive();       // this block is done with the partials
     }
     if (t + 1 < T) grid_arrive(bar);
+    hl::keep_phase(on, 5, t, hl::stamp());
   }
   hl::cluster_wait();             // no block leaves while a peer reads it
 }
@@ -550,6 +589,190 @@ cudaError_t run_plan(const bf16* xp, const bf16* w, const bf16* h0,
 }
 
 }  // namespace persist_step
+
+// --------------------------------------- persistent (fp32) kernel
+
+namespace persist_f32 {
+
+using namespace hl::pf32;
+
+// the grid is p.clusters clusters of p.c == CL blocks; H % 4 == 0 (TMA's
+// rows of 16-byte multiples)
+constexpr int CL = 4;
+
+template <int TM, int TN, int WK>
+__global__ void __launch_bounds__(THREADS, 1)
+fwd(const __grid_constant__ CUtensorMap wmap,   // W_hh (H, H, 4 gates)
+    const __grid_constant__ CUtensorMap h0map,  // h0 (H, B)
+    const __grid_constant__ CUtensorMap ysmap,  // ys (H, B, T)
+    const float* __restrict__ xp, float* __restrict__ c,
+    float* __restrict__ ys, float* __restrict__ h_last,
+    float* __restrict__ acts, float* __restrict__ cs,
+    unsigned* __restrict__ bar, int T, int B, int H, const Plan p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  constexpr int BM = 8 * TM;
+  const Layout lay(p);
+  const uint32_t base =
+      (hl::smem_u32(smem_raw) + 1023) & ~1023u;   // the first 1 KB boundary
+  float* p_s = reinterpret_cast<float*>(
+      smem_raw + (base - hl::smem_u32(smem_raw)) + lay.region);
+  const int cu = p.c * p.u;
+  const int rank = static_cast<int>(hl::cluster_rank());
+  const int j0 = (blockIdx.x / p.c) * cu;   // the cluster's first unit
+  const int ju = j0 + rank * p.u;           // this block's first unit
+  const int nu = max(0, min(p.u, H - ju));  // and how many it has
+  const Geo<WK> g;
+  // W rows: the cluster's units' four gates, columns from rank kc
+  Ring<3> rg{base + lay.region, base, base + lay.bars, &wmap, lay.slot,
+             lay.hpart, lay.wrows, p.n * ROW, p.stages, lay.nsl, lay.nstr,
+             rank * p.kc, j0, 0u};
+  rg.init();
+  rg.prefetch();
+
+  const size_t in = (size_t)B * 4 * H, out = (size_t)B * H;
+  // phase stamps (-DHL_PHASES only): block 0's thread 0, each step
+  const bool on = blockIdx.x == 0 && threadIdx.x == 0;
+  for (int t = 0; t < T; ++t) {
+    for (int b0 = 0; b0 < B; b0 += BM) {
+      const int rows = min(BM, B - b0);
+      const bool st = on && b0 == 0, last = b0 + BM >= B;
+      long long waited = 0, first = 0;
+      hl::keep_phase(st, 0, t, hl::stamp());
+      if (t > 0 && b0 == 0)
+        hl::persist::grid_wait(bar, (unsigned)t * gridDim.x);
+      hl::keep_phase(st, 1, t, hl::stamp());
+      float acc[TM][TN];
+      // h_{t-1}: ys[t-1], h0 at t = 0
+      product<TM, TN, WK>(rg, t ? &ysmap : &h0map, b0, t - 1, g, acc,
+                          waited, first);
+      hl::keep_phase(st, 2, t, waited);
+      hl::keep_phase(st, 7, t, first);
+      hl::keep_phase(st, 3, t, hl::stamp());
+      store_partials<TM, TN, WK>(p_s, p.n, p.u, cu, 4, BM, g, acc);
+      fold(p_s, BM * p.n, p.wk);
+      // this thread's cells: i = tid + THREADS e of the block's BM u, cell
+      // (b0 + i / u, ju + i % u), so that a warp's loads and stores run
+      // along a row's units; x_proj's gates and c, loaded while the
+      // cluster's partials are finished
+      float zx[CMAX][4], cv[CMAX];
+#pragma unroll
+      for (int e = 0; e < CMAX; ++e) {
+        const int i = threadIdx.x + THREADS * e;
+        const int b = i / p.u, jl = i % p.u;
+        cv[e] = 0.f;
+#pragma unroll
+        for (int gt = 0; gt < 4; ++gt) zx[e][gt] = 0.f;
+        if (i < BM * p.u && b < rows && jl < nu) {
+          const float* x = xp + t * in + (size_t)(b0 + b) * 4 * H + ju + jl;
+#pragma unroll
+          for (int gt = 0; gt < 4; ++gt) zx[e][gt] = x[gt * H];
+          cv[e] = c[(size_t)(b0 + b) * H + ju + jl];
+        }
+      }
+      hl::cluster_arrive();
+      hl::cluster_wait();         // every block's partials are written
+      {
+        uint32_t peer[CL];        // the partials of the cluster
+        hl::persist::peers(peer, hl::smem_addr(p_s));
+#pragma unroll
+        for (int e = 0; e < CMAX; ++e) {
+          const int i = threadIdx.x + THREADS * e;
+          if (i >= BM * p.u) continue;
+#pragma unroll
+          for (int gt = 0; gt < 4; ++gt) {
+            // the CL blocks' partials summed in rank order
+            const uint32_t off = 4u * ((rank * 4 + gt) * BM * p.u + i);
+            float v[CL];
+#pragma unroll
+            for (int r = 0; r < CL; ++r) v[r] = hl::ld_cluster(peer[r] + off);
+            float sum = 0.f;
+#pragma unroll
+            for (int r = 0; r < CL; ++r) sum += v[r];
+            zx[e][gt] += sum;
+          }
+        }
+      }
+      hl::cluster_arrive();       // this block is done with the partials
+      hl::keep_phase(st, 4, t, hl::stamp());
+      // the cells: ys (the next step's h, read by every block) before the
+      // grid arrive; c, the residuals and the last h, which no other
+      // block reads in this launch, after it
+      float av[CMAX][4], hv[CMAX];
+#pragma unroll
+      for (int e = 0; e < CMAX; ++e) {
+        const int i = threadIdx.x + THREADS * e;
+        const int b = i / p.u, jl = i % p.u;
+        if (i < BM * p.u && b < rows && jl < nu) {
+          activate(zx[e][0], zx[e][1], zx[e][2], zx[e][3], av[e], cv[e]);
+          hv[e] = av[e][3] * tanhf(cv[e]);
+          ys[t * out + (size_t)(b0 + b) * H + ju + jl] = hv[e];
+        }
+      }
+      if (last && t + 1 < T) hl::persist::grid_arrive(bar);
+#pragma unroll
+      for (int e = 0; e < CMAX; ++e) {
+        const int i = threadIdx.x + THREADS * e;
+        const int b = i / p.u, jl = i % p.u;
+        if (i < BM * p.u && b < rows && jl < nu) {
+          const size_t bb = b0 + b, o = bb * H + ju + jl;
+          c[o] = cv[e];
+          if (acts) {
+            float* a = acts + t * in + bb * 4 * H + ju + jl;
+#pragma unroll
+            for (int gt = 0; gt < 4; ++gt) a[gt * H] = av[e][gt];
+            cs[t * out + o] = cv[e];
+          }
+          if (t == T - 1) h_last[o] = hv[e];
+        }
+      }
+      hl::keep_phase(st, 5, t, hl::stamp());
+      hl::cluster_wait();         // the peers are done with these partials
+      if (t + 1 < T || !last) rg.prefetch();
+      hl::keep_phase(st, 6, t, hl::stamp());
+    }
+  }
+}
+
+template <int TM, int TN, int WK>
+cudaError_t run(const CUtensorMap& wm, const CUtensorMap& hm,
+                const CUtensorMap& ym, const float* xp, float* c, float* ys,
+                float* h_last, float* acts, float* cs, unsigned* bar, int T_,
+                int B, int H, const Plan& p, cudaStream_t stream) {
+  return hl::persist::launch(fwd<TM, TN, WK>, p.clusters * p.c, p.c, p.smem,
+                             stream, wm, hm, ym, xp, c, ys, h_last, acts, cs,
+                             bar, T_, B, H, p);
+}
+
+cudaError_t run_plan(const float* xp, const float* w, const float* h0,
+                     float* c, float* ys, float* h_last, float* acts,
+                     float* cs, unsigned* bar, int T_, int B, int H,
+                     const Plan& p, cudaStream_t s) {
+  if (p.c != CL || Layout(p).size != p.smem || H % 4 || p.c * p.u > 256)
+    return cudaErrorInvalidValue;
+  const int bm = 8 * p.tm;
+  const cuuint64_t h4 = (cuuint64_t)H * 4;
+  const cuuint64_t wd[3] = {(cuuint64_t)H, (cuuint64_t)H, 4},
+                   ws[2] = {h4, h4 * H},
+                   hd[2] = {(cuuint64_t)H, (cuuint64_t)B}, hs[1] = {h4},
+                   yd[3] = {(cuuint64_t)H, (cuuint64_t)B, (cuuint64_t)T_},
+                   yst[2] = {h4, h4 * B};
+  const cuuint32_t wb[3] = {KS, (cuuint32_t)(p.c * p.u), 4},
+                   hb[2] = {KS, (cuuint32_t)bm}, yb[3] = {KS, (cuuint32_t)bm, 1};
+  CUtensorMap wm, hm, ym;
+  if (!hl::slice_map_f32(&wm, w, 3, wd, ws, wb) ||
+      !hl::slice_map_f32(&hm, h0, 2, hd, hs, hb) ||
+      !hl::slice_map_f32(&ym, ys, 3, yd, yst, yb))
+    return cudaErrorInvalidValue;
+#define HL_F32_RUN(TM_, TN_, WK_)                                          \
+  if (p.tm == TM_ && p.tn == TN_ && p.wk == WK_)                            \
+    return run<TM_, TN_, WK_>(wm, hm, ym, xp, c, ys, h_last, acts, cs, bar, \
+                              T_, B, H, p, s);
+  HL_F32_TILES(HL_F32_RUN)
+#undef HL_F32_RUN
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace persist_f32
 
 template <typename T>
 cudaError_t run_fma(const T* xp, const T* w, const T* h0, float* c, T* ys,
@@ -595,8 +818,9 @@ cudaError_t run_tc(const bf16* xp, const bf16* w, const bf16* h0, float* c,
 // bf16; c (B, H) fp32 holds c0 and is left holding the last c; ys
 // (T, B, H) in the same dtype; h_last (B, H) fp32 receives the last h.
 // acts (T, B, 4H) and cs (T, B, H) in the same dtype receive the
-// residuals, or are both null. plan (host, hl::persist::PLAN_INTS ints)
-// selects the persistent kernel (bf16, H % 8 == 0), with bar a zeroed
+// residuals, or are both null. plan (host ints: hl::persist::PLAN_INTS
+// in bf16, hl::pf32::PLAN_INTS in fp32) selects the persistent kernel
+// (bf16 with H % 8 == 0, or fp32 with H % 4 == 0), with bar a zeroed
 // 32-bit word on the card; null selects the per-step kernels (tc_step for
 // bf16 with H % 8 == 0, else fma_step). Returns the launches'
 // cudaError_t.
@@ -608,8 +832,15 @@ extern "C" int hl_lstm_fwd(const void* xp, const void* w, const void* h0,
   float* cc = static_cast<float*>(c);
   float* hlast = static_cast<float*>(h_last);
   cudaError_t err;
-  if (plan) {
-    if (!bf16_ || H % 8 != 0 || !bar) return cudaErrorInvalidValue;
+  if (plan && !bf16_) {
+    if (!bar) return cudaErrorInvalidValue;
+    err = persist_f32::run_plan(
+        static_cast<const float*>(xp), static_cast<const float*>(w),
+        static_cast<const float*>(h0), cc, static_cast<float*>(ys), hlast,
+        static_cast<float*>(acts), static_cast<float*>(cs),
+        static_cast<unsigned*>(bar), T, B, H, hl::pf32::read_plan(plan), s);
+  } else if (plan) {
+    if (H % 8 != 0 || !bar) return cudaErrorInvalidValue;
     err = persist_step::run_plan(
         static_cast<const bf16*>(xp), static_cast<const bf16*>(w),
         static_cast<const bf16*>(h0), cc, static_cast<bf16*>(ys), hlast,
@@ -656,3 +887,8 @@ extern "C" int hl_lstm_card(int c, int* out) {
   out[2] = hl::persist::max_clusters(persist_step::fwd<1>, c, out[1]);
   return out[2] < 0 ? -out[2] : 0;
 }
+
+#ifdef HL_PHASES
+// the phase stamps of the last persistent K1 launch (bf16 or fp32)
+extern "C" int hl_lstm_fwd_phases(void* out) { return hl::copy_phases(out); }
+#endif

@@ -761,6 +761,8 @@ fwd_k(const bf16* __restrict__ xp, const int8_t* __restrict__ wq,
 
   const int lw0 = first_loader(p.nw, p.wk);
   init_ring(bars, p.stages, lw0);
+  // phase stamps (-DHL_PHASES only): block 0's thread 0, each step
+  const bool on = blockIdx.x == 0 && threadIdx.x == 0;
   hl::cluster_arrive();                     // the partials are free
   for (int t = 0; t < T; ++t) {
     const int8_t* h = hq + (t & 1) * n1;
@@ -783,7 +785,9 @@ fwd_k(const bf16* __restrict__ xp, const int8_t* __restrict__ wq,
         if (b < rows && jl < nu)
           fwd::load_cell(st, (size_t)(b0 + b), ju + jl, H, zx[e], cv[e]);
       }
+      hl::keep_phase(on && b0 == 0, 0, t, hl::stamp());
       if (b0 == 0) ph.wait(bar);
+      hl::keep_phase(on && b0 == 0, 1, t, hl::stamp());
 
       int acc[NPW][MT][4];
 #pragma unroll
@@ -795,10 +799,12 @@ fwd_k(const bf16* __restrict__ xp, const int8_t* __restrict__ wq,
       hl::cluster_wait();         // the cluster is done with the partials
       product<NPW>(h, H, k0, cols, b0, rows, p.kc, w_s, x_s, bars, p.stages,
                    par, ng, wkg, p.wk, lw0, acc);
+      hl::keep_phase(on && b0 == 0, 2, t, hl::stamp());
       if (wkg < p.wk) store_partial<NPW>(p_s, p.n, p.u, cu, ng, wkg, acc);
       fold_slabs(p_s, p.n, p.wk);
       hl::cluster_arrive();
       hl::cluster_wait();         // every block's partials are written
+      hl::keep_phase(on && b0 == 0, 3, t, hl::stamp());
 
       int4 v[4][CL];              // the cells' gate sums from the CL blocks
       if (live)
@@ -815,9 +821,11 @@ fwd_k(const bf16* __restrict__ xp, const int8_t* __restrict__ wq,
           fwd::cell(st, zx[e], cv[e], sums, (size_t)(b0 + b), ju + jl, H);
         }
       }
+      hl::keep_phase(on && b0 == 0, 4, t, hl::stamp());
       hl::cluster_arrive();       // this block is done with the partials
     }
     if (t + 1 < T) ph.arrive(bar);
+    hl::keep_phase(on, 5, t, hl::stamp());
   }
   hl::cluster_wait();             // no block leaves while a peer reads it
 }
@@ -883,6 +891,8 @@ bwd_k(const bf16* __restrict__ dys, const bf16* __restrict__ acts,
 
   const int lw0 = first_loader(p.nw, p.wk);
   init_ring(bars, p.stages, lw0);
+  // phase stamps (-DHL_PHASES only): block 0's thread 0, each step
+  const bool on = blockIdx.x == 0 && threadIdx.x == 0;
   hl::cluster_arrive();                     // the partials are free
   for (int sidx = 0; sidx <= T; ++sidx) {
     const int t = T - 1 - sidx;   // the step whose delta follows; -1: dh0
@@ -913,7 +923,9 @@ bwd_k(const bf16* __restrict__ dys, const bf16* __restrict__ acts,
         }
       }
       if (sidx > 0) {           // dh_rec = q(dgates[t+1] * s) . wq m / 127
+        hl::keep_phase(on && b0 == 0, 0, sidx, hl::stamp());
         ph.wait(bar);
+        hl::keep_phase(on && b0 == 0, 1, sidx, hl::stamp());
         int acc[NPW][MT][4];
 #pragma unroll
         for (int j = 0; j < NPW; ++j)
@@ -924,10 +936,12 @@ bwd_k(const bf16* __restrict__ dys, const bf16* __restrict__ acts,
         hl::cluster_wait();     // the cluster is done with the partials
         product<NPW>(q, K, k0, cols, b0, rows, p.kc, w_s, x_s, bars,
                      p.stages, par, ng, wkg, p.wk, lw0, acc);
+        hl::keep_phase(on && b0 == 0, 2, sidx, hl::stamp());
         if (wkg < p.wk) store_partial<NPW>(p_s, p.n, p.u, cu, ng, wkg, acc);
         fold_slabs(p_s, p.n, p.wk);
         hl::cluster_arrive();
         hl::cluster_wait();     // every block's partials are written
+        hl::keep_phase(on && b0 == 0, 3, sidx, hl::stamp());
         int4 v[CL];             // the cells' sums from the CL blocks
         if (live) {
           gather(v, peer, rank * BM * p.u + i0);
@@ -939,6 +953,7 @@ bwd_k(const bf16* __restrict__ dys, const bf16* __restrict__ acts,
                                  __ldcg(mq + b0 + b));
           }
         }
+        hl::keep_phase(on && b0 == 0, 4, sidx, hl::stamp());
         hl::cluster_arrive();   // this block is done with the partials
       }
       if (t < 0) {              // dh0
@@ -969,6 +984,7 @@ bwd_k(const bf16* __restrict__ dys, const bf16* __restrict__ acts,
       if (threadIdx.x < rows)
         atomicMax(gm + b0 + threadIdx.x, rmax_s[threadIdx.x]);
       ph.arrive(bar);
+      hl::keep_phase(on && b0 == 0, 5, sidx, hl::stamp());
       // while the others arrive: dgates[t] and dc, which no block reads
       // in this launch
 #pragma unroll
@@ -980,6 +996,7 @@ bwd_k(const bf16* __restrict__ dys, const bf16* __restrict__ acts,
       }
       // every block's maxima are in: each row's m (at least 1e-20); the
       // owners quantize their cells, and the next product reads q and mq
+      hl::keep_phase(on && b0 == 0, 6, sidx, hl::stamp());
       ph.wait(bar);
       if (threadIdx.x < rows) {
         const float m = fmaxf(__int_as_float(__ldcg(gm + b0 + threadIdx.x)),
@@ -1001,6 +1018,7 @@ bwd_k(const bf16* __restrict__ dys, const bf16* __restrict__ acts,
             o[g * H] = q8(__fdiv_rn(v[e][g], m_s[b]));
         }
       }
+      hl::keep_phase(on && b0 == 0, 7, sidx, hl::stamp());
       ph.arrive(bar);
     }
   }
@@ -1139,3 +1157,8 @@ extern "C" int hl_lstm_bwd_q8(const void* dys, const void* acts,
   }
   return static_cast<int>(err);
 }
+
+#ifdef HL_PHASES
+// the phase stamps of the last persistent K1-q8 or K2-q8 launch
+extern "C" int hl_lstm_q8_phases(void* out) { return hl::copy_phases(out); }
+#endif

@@ -264,16 +264,25 @@ __device__ __forceinline__ void product(
       issue(s, threadIdx.x - 32 * lw0, THREADS - 32 * lw0);
   };
   const int ahead = min(stages, nsl);
+  // HL_ABLATE_LOADS / HL_ABLATE_MMA (kernels.ABLATIONS): the ring's
+  // loads or the mma.sync left out, for the phase stamps' ablations
+#ifndef HL_ABLATE_LOADS
   for (int s = 0; s < ahead; ++s) load(s);
+#endif
   for (int s = 0; s < nsl; ++s) {
     const int slot = s % stages;
+#ifndef HL_ABLATE_LOADS
     mbar_wait(bars + 8 * slot, (par >> slot) & 1);
+#endif
     par ^= 1u << slot;
     const unsigned char* xt = ring + slot * BM * LDB;
     // this warp's n-tiles of the slab at this slice's columns
     const unsigned char* wk_s = slab + (size_t)ng * NPW * 8 * ldw + s * SB;
 #pragma unroll
     for (int kk = 0; kk < STEPS; ++kk) {
+#ifdef HL_ABLATE_MMA
+      continue;
+#endif
       if (wkg >= wk || (wk > 1 && (s * STEPS + kk) % wk != wkg))
         continue;
       uint32_t a[MT][4];
@@ -305,7 +314,9 @@ __device__ __forceinline__ void product(
     }
     if (s + stages < nsl) {
       __syncthreads();            // every warp is done with this slot
+#ifndef HL_ABLATE_LOADS
       load(s + stages);
+#endif
     }
   }
   __syncthreads();                // every warp is done with the ring

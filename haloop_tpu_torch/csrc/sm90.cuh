@@ -130,6 +130,25 @@ inline bool tile_map_f32(CUtensorMap* map, const void* base, int cols,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// An fp32 map of rank 2 or 3 (dims innermost first, contiguous along
+// dims[0]; byte strides of the outer dims, multiples of 16) whose box
+// rows are 128 bytes (box[0] = 32), swizzled 128 B: 16-byte chunk c of
+// box row r lands at chunk c ^ (r % 8) of its 128-byte row in shared
+// memory (the box 1024-byte aligned). Elements out of bounds load as
+// zeros. False if the driver refuses the map.
+inline bool slice_map_f32(CUtensorMap* map, const void* base, int rank,
+                          const cuuint64_t* dims, const cuuint64_t* strides,
+                          const cuuint32_t* box) {
+  EncodeTiledFn fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint32_t estr[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank,
+            const_cast<void*>(base), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // the dynamic shared memory attribute of `kernel`, set once a device
 // (`done`, a bit a device, is kept by the kernel's own launcher: a helper
 // templated on the kernel's type would share it between kernels of one
@@ -302,6 +321,25 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// one box of a 3-D map at coordinates (c0, c1, c2)
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// orders this thread's earlier generic-proxy accesses (shared and global)
+// before its later async-proxy ones (TMA)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
 }
 
 template <int R>

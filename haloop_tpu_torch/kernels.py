@@ -29,7 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # xp, w, h0, c, ys, h_last, acts, cs, T, B, H, bf16, plan (host
-    # int[10] or null), barrier word, stream
+    # int[10] in bf16, int[11] in fp32, or null), barrier word, stream
     "hl_lstm_fwd": [_P] * 8 + [_I] * 4 + [_P] * 3,
     # dys, acts, cs, c0, wt, dh_init, dc, dgates, dh0, T, B, H, bf16, plan,
     # barrier word, stream
@@ -97,8 +97,16 @@ _SIGNATURES = {
 # (PHASES x PHASE_ITEMS int64, csrc/sm90.cuh) of the last launch out
 PHASE_ENTRIES = ("hl_k11_phases", "hl_ctc_fwd_phases", "hl_star_fwd_phases",
                  "hl_ctc_bwd_phases", "hl_star_bwd_phases",
-                 "hl_joint_bwd_phases")
+                 "hl_joint_bwd_phases", "hl_lstm_fwd_phases",
+                 "hl_lstm_bwd_phases", "hl_lstm_q8_phases")
 PHASES, PHASE_ITEMS = 8, 4096
+# the ablations a trace_phases build may compile in (scripts/lstm_probe.py
+# --phases): the bf16 and int8 persistent product (csrc/persist.cuh)
+# without its ring's loads or without its mma.sync, the fp32 one
+# (csrc/persist_f32.cuh) without W's streamed slices or with its
+# shared-memory operands loaded once a slice
+ABLATIONS = ("HL_ABLATE_LOADS", "HL_ABLATE_MMA", "HL_ABLATE_W_STREAM",
+             "HL_ABLATE_OPERAND_LOADS")
 
 _lib = None
 _build_error = None      # the failed build's error, raised again
@@ -171,19 +179,27 @@ def build():
     return LIB
 
 
-def trace_phases():
+def trace_phases(*ablations):
     """Build, at the first launch, with the kernels' phase stamps compiled
     in (``-DHL_PHASES``; ``csrc/sm90.cuh`` stamp / keep_phase) into a
     library of its own beside the plain one, and bind the entry points
     that copy the stamps out: the --phases runs of scripts/decode_probe.py,
-    scripts/lattice_probe.py and scripts/joint_probe.py. Call it before
-    ``library``."""
+    scripts/lattice_probe.py, scripts/joint_probe.py and
+    scripts/lstm_probe.py. ``ablations`` are further macros compiled in
+    (``-D<name>``, ABLATIONS: parts of a kernel left out, whose results are
+    wrong and whose times are the point), each set in a library of its
+    own. Call it before ``library``."""
     global BUILD, LIB
     if _lib is not None:
         raise RuntimeError("trace_phases: the plain library is loaded")
+    unknown = set(ablations) - set(ABLATIONS)
+    if unknown:
+        raise ValueError(f"trace_phases: no ablation {sorted(unknown)}")
     if "-DHL_PHASES" not in NVCC_FLAGS:
         NVCC_FLAGS.append("-DHL_PHASES")
-        BUILD = BUILD.with_name(BUILD.name + "_phases")
+        NVCC_FLAGS.extend(f"-D{a}" for a in ablations)
+        BUILD = BUILD.with_name("_".join(
+            [BUILD.name, "phases", *(a.lower() for a in ablations)]))
         LIB = BUILD / LIB.name
         for name in PHASE_ENTRIES:
             _SIGNATURES[name] = [_P]

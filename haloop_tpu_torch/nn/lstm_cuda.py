@@ -18,13 +18,18 @@ residuals, K2-q8) or K1-q8 without residuals.
 A CPU tensor takes the plain versions in ``nn.lstm`` (through the same
 Function under autograd); a CUDA tensor launches the kernels or raises.
 
-K1 and K2 take one of three routes, decided before the launch by
-``route`` from the dtype, H and what the card offers (never on failure):
-``persist``, one persistent launch a layer call with W_hh resident in the
-SMs' shared memory (bf16, H % 8 == 0, W's slices fit; every hac width),
-laid out by ``persist_plan``; ``tc_step``, a tensor-core launch a step
-(bf16 whose slices do not fit); ``fma_step``, a CUDA-core launch a step
-(fp32, or H % 8 != 0). K1-q8 and K2-q8 (kinds ``fwd_q8``, ``bwd_q8``) take
+K1 and K2 take one of four routes, decided before the launch by
+``route`` from the dtype, H, B and what the card offers (never on
+failure): ``persist``, one persistent launch a layer call with W_hh
+resident in the SMs' shared memory (bf16, H % 8 == 0, W's slices fit;
+every hac width), laid out by ``persist_plan``; ``persist_f32``, one
+persistent launch a layer call in fp32 (hal's 1 x 2048 and the parity
+runs: exact fp32 FFMA, W's columns resident as far as the shared memory
+allows and the rest streamed every step), laid out by ``f32_plan``
+(every fp32 width a compiled tile covers, K1 with H % 4 == 0);
+``tc_step``, a tensor-core launch a step (bf16 whose slices do not fit);
+``fma_step``, a CUDA-core launch a step (H % 8 != 0 in bf16, fp32 shapes
+no fp32 plan tiles). K1-q8 and K2-q8 (kinds ``fwd_q8``, ``bwd_q8``) take
 ``persist`` on the same skeleton with int8 wq resident (H % 16 == 0, the
 plan fits: every hac width; K1-q8 with bf16 x_proj and H of at least
 ``Q8_FWD_MIN_H``), else the per-step ``tc_step`` (H % 32 == 0) or
@@ -45,10 +50,10 @@ bwd_launches = 0          # K2 calls (one per layer backward)
 q8_launches = 0           # K1-q8 calls without residuals
 q8_residual_launches = 0  # K1-q8 calls with residuals
 q8_bwd_launches = 0       # K2-q8 calls
-# the calls of each kind by route: "fwd_persist", "bwd_tc_step",
-# "fwd_q8_int_step", ... (K1 and K1-q8 both modes)
-ROUTES = {"fwd": ("persist", "tc_step", "fma_step"),
-          "bwd": ("persist", "tc_step", "fma_step"),
+# the calls of each kind by route: "fwd_persist", "bwd_persist_f32",
+# "bwd_tc_step", "fwd_q8_int_step", ... (K1 and K1-q8 both modes)
+ROUTES = {"fwd": ("persist", "persist_f32", "tc_step", "fma_step"),
+          "bwd": ("persist", "persist_f32", "tc_step", "fma_step"),
           "fwd_q8": ("persist", "tc_step", "int_step"),
           "bwd_q8": ("persist", "tc_step", "int_step")}
 route_launches = {f"{k}_{r}": 0 for k, rs in ROUTES.items() for r in rs}
@@ -96,6 +101,98 @@ class Plan:
     @property
     def blocks(self):
         return self.c * self.clusters
+
+
+# The fp32 persistent kernels (csrc/persist_f32.cuh): the contraction a ring
+# slice (elements: 128-byte rows), the compiled thread tiles (tm batch rows
+# and tn rows of W a thread, wk k groups; HL_F32_TILES), the bytes the ring
+# keeps in flight while a slice is multiplied (32 KB, the fewest slots:
+# 64 and 96 KB, which leave fewer slices resident, timed K1 3-4% slower
+# at hal's shape on an H100 and K2 no faster; scripts/lstm_probe.py --f32
+# --variants, PERF.md), and the cells a thread updates at most
+F32_KS = 32
+F32_TMS, F32_TNS, F32_WKS = (1, 8), (5, 7, 9), (1, 2, 4)
+F32_IN_FLIGHT = 32 * 1024
+F32_CMAX = 8
+
+
+@dataclass(frozen=True)
+class F32Plan:
+    """One fp32 persistent launch's layout (csrc/persist_f32.cuh ``Plan``,
+    in the same order)."""
+    c: int          # blocks a cluster
+    u: int          # hidden units a block updates; a cluster owns c u
+    clusters: int   # clusters in the grid
+    kc: int         # contraction a block takes (multiple of F32_KS)
+    n: int          # rows of W a block multiplies
+    tm: int         # batch rows a thread: a batch tile of 8 tm rows
+    tn: int         # rows of W a thread
+    wk: int         # k groups (partial slabs, folded in order)
+    stages: int     # ring slots
+    nres: int       # slices of W resident (the last nres of kc / F32_KS)
+    smem: int       # dynamic shared memory a block, bytes
+
+    @property
+    def blocks(self):
+        return self.c * self.clusters
+
+    @property
+    def bm(self):
+        return 8 * self.tm
+
+    @property
+    def ncap(self):
+        return 32 // self.wk * self.tn
+
+
+def f32_layout(kc, n, tm, tn, wk, stages, nres):
+    """The dynamic shared memory of an fp32 plan (persist_f32.cuh
+    ``Layout``): 1024 bytes of slack (the first 1 KB boundary), the
+    resident slices, the ring (or the partials after a product), an
+    mbarrier a slot and one for the resident slices."""
+    row = F32_KS * 4
+    nsl = kc // F32_KS
+    wrows = 32 // wk * tn * row
+    slot = 8 * tm * row + (wrows if nsl > nres else 0)
+    region = -(-max(stages * slot, wk * 8 * tm * n * 4) // 16) * 16
+    return 1024 + nres * wrows + region + 8 * (stages + 1)
+
+
+def f32_plan(kind, H, B, sms, smem, clusters=None):
+    """The fp32 persistent launch of K1 (``kind`` "fwd") or K2 ("bwd") at
+    width H and batch B on a card of ``sms`` SMs, ``smem`` bytes of shared
+    memory a block and ``clusters`` clusters of CLUSTERS[kind] blocks at
+    once, or None where no compiled tile covers a block's rows. The fewest
+    units a block (the most blocks); the tile of the fewest rows that
+    covers them, then the fewest k groups; one batch tile of 8 rows up to
+    B = 8, else of 64; then the ring deep enough for F32_IN_FLIGHT bytes
+    and as many of W's slices resident as the rest of the shared memory
+    holds."""
+    c = CLUSTERS[kind]
+    clusters = sms // c if clusters is None else clusters
+    if clusters < 1:
+        return None
+    gates, kdim = (4, H) if kind == "fwd" else (1, 4 * H)
+    tm = F32_TMS[0] if B <= 8 * F32_TMS[0] else F32_TMS[-1]
+    u = -(-H // (c * clusters))
+    n = gates * c * u
+    fits = [(32 // wk * tn, wk, tn) for wk in F32_WKS for tn in F32_TNS
+            if 32 // wk * tn >= n]
+    # TMA boxes of at most 256 rows (a cluster's units)
+    if not fits or 8 * tm * u > F32_CMAX * THREADS or c * u > 256:
+        return None
+    _, wk, tn = min(fits)
+    kc = -(-kdim // (c * F32_KS)) * F32_KS
+    nsl = kc // F32_KS
+    for nres in range(nsl, -1, -1):
+        slot = 8 * tm * F32_KS * 4 + \
+            (32 // wk * tn * F32_KS * 4 if nsl > nres else 0)
+        stages = min(nsl, max(2, 1 + -(-F32_IN_FLIGHT // slot)))
+        size = f32_layout(kc, n, tm, tn, wk, stages, nres)
+        if size <= smem:
+            return F32Plan(c, u, -(-H // (c * u)), kc, n, tm, tn, wk,
+                           stages, nres, size)
+    return None
 
 
 def _warp_split(nt):
@@ -154,14 +251,18 @@ def persist_plan(kind, H, sms, smem, clusters=None):
 
 
 def route(kind, dtype, H, B, sms, smem, clusters=None):
-    """(name, Plan or None) for K1 (``kind`` "fwd", both modes), K2
-    ("bwd"), K1-q8 ("fwd_q8", both modes; ``dtype`` x_proj's) or K2-q8
+    """(name, plan) for K1 (``kind`` "fwd", both modes), K2 ("bwd"), K1-q8 ("fwd_q8", both modes; ``dtype`` x_proj's) or K2-q8
     ("bwd_q8"; bf16) at (dtype, H), batch B, on a card of ``sms`` SMs and
     ``smem`` bytes of shared memory a block (``clusters``: see
-    persist_plan); K1-q8 below Q8_FWD_MIN_H takes the per-step kernel.
-    Every B takes the route of its H: the persistent kernels loop over
-    48-row batch tiles."""
-    del B
+    persist_plan); the plan is a Plan for ``persist``, an F32Plan for
+    ``persist_f32``, else None. K1-q8 below Q8_FWD_MIN_H takes the
+    per-step kernel. In bf16 every B takes the route of its H (the persistent kernels loop
+    over 48-row batch tiles); fp32 takes ``persist_f32`` wherever
+    ``f32_plan`` fits (K1 with H % 4 == 0), its batch tile from B."""
+    if dtype == torch.float32 and not kind.endswith("_q8"):
+        plan = None if kind == "fwd" and H % 4 else \
+            f32_plan(kind, H, B, sms, smem, clusters)
+        return ("persist_f32", plan) if plan else ("fma_step", None)
     if kind.endswith("_q8"):
         step = "tc_step" if H % 32 == 0 else "int_step"
         if dtype != torch.bfloat16 or H % 16 or \
@@ -169,7 +270,7 @@ def route(kind, dtype, H, B, sms, smem, clusters=None):
             return step, None
     else:
         step = "tc_step"
-        if dtype != torch.bfloat16 or H % 8:
+        if H % 8:
             return "fma_step", None
     plan = persist_plan(kind, H, sms, smem, clusters)
     return ("persist", plan) if plan else (step, None)
@@ -205,14 +306,14 @@ def card(device):
 
 
 def _launch_route(kind, dtype, H, B, device, per_step=False):
-    """The route and, for ``persist``, the plan as a C int array, the
-    zeroed barrier word (K2-q8: followed by 2 B zeroed words, its row
-    maxima) and the Plan; counts the call. ``per_step``: the per-step
-    route of the shape whatever the card."""
+    """The route and, for ``persist`` and ``persist_f32``, the plan as a C
+    int array, the zeroed barrier word (K2-q8: followed by 2 B zeroed
+    words, its row maxima) and the plan; counts the call. ``per_step``:
+    the per-step route of the shape whatever the card."""
     sms = smem = 0
     ncl = {kind: None}
-    if not per_step and dtype == torch.bfloat16 and \
-            H % (16 if kind.endswith("_q8") else 8) == 0:
+    if not per_step and (dtype == torch.float32 and not kind.endswith("_q8")
+                         or H % (16 if kind.endswith("_q8") else 8) == 0):
         sms, smem, ncl = card(device)
     name, plan = route(kind, dtype, H, B, sms, smem, ncl[kind])
     route_launches[f"{kind}_{name}"] += 1
@@ -337,7 +438,14 @@ def lstm_fwd_cuda(w_hh, x_proj, h0, c0, residuals=False):
         return (ys, h, c, acts, cs) if residuals else (ys, h, c)
     # h enters each product in W's dtype: h0 so, and later ys[t-1]
     h_in = h0.to(dt).contiguous()
-    plan, bar, _ = _launch_route("fwd", dt, H, B, dev)
+    plan, bar, p = _launch_route("fwd", dt, H, B, dev)
+    if isinstance(p, F32Plan):
+        # the fp32 kernel reads W_hh and h0 by TMA: 16-byte aligned rows
+        if w_hh.data_ptr() % 16:
+            raise ValueError("lstm_scan: the fp32 kernel takes a 16-byte "
+                             "aligned W_hh")
+        if h_in.data_ptr() % 16:
+            h_in = h_in.clone()
     err = kernels.library().hl_lstm_fwd(
         x_proj.data_ptr(), w_hh.data_ptr(), h_in.data_ptr(), c.data_ptr(),
         ys.data_ptr(), h_last.data_ptr(),

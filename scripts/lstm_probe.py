@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """The LSTM recurrence kernels of the PyTorch port alone on one GPU: K1
 (``haloop_tpu_torch/csrc/lstm_fwd.cu``, with and without residuals) and
-K2 (``csrc/lstm_bwd.cu``) in bf16, or with ``--q8`` their int8 modes K1-q8
+K2 (``csrc/lstm_bwd.cu``) in bf16, with ``--f32`` in fp32 (their
+``persist_f32`` route, hal's), or with ``--q8`` their int8 modes K1-q8
 (both modes) and K2-q8 (``csrc/lstm_q8.cu``): their build, what the card
 offers them, the route and plan each shape takes, checks against the
 plain versions, and their times.
@@ -12,30 +13,39 @@ plain versions, and their times.
         # each in a process of its own, at the same shapes and inputs
     python3 scripts/lstm_probe.py --tree DIR --times-only
         # one tree's times and rates as a JSON line (what --against runs)
+    python3 scripts/lstm_probe.py --f32 --variants
+        # fp32 plans other than the route's (ring depth, k groups) timed
+        # in turns with it at hal's shape
     python3 scripts/lstm_probe.py --phases
-        # where a step's time goes in the persistent kernels: a copy of
-        # this tree under build/lstm_phases*/ with clock64 stamps added
-        # (block 0, thread 0, each step), medians in cycles; then again
-        # with the product's loads left out (it multiplies whatever the
-        # ring holds) and with its mma.sync left out (the results are
-        # wrong there, the times are the point)
+        # where a step's time goes in the persistent kernels: the kernels
+        # built with their phase stamps compiled in (-DHL_PHASES,
+        # kernels.trace_phases: block 0's thread 0, each step), medians in
+        # cycles; then ablations, each compiled in by a macro of its own
+        # (kernels.ABLATIONS; bf16: the product's loads left out, its
+        # mma.sync left out; fp32: W's stream left out, the product's
+        # operand loads once a slice), whose results are wrong: the times
+        # are the point
 
-``--q8`` with any of these: K1-q8 and K2-q8 instead. Its checks also
-hold the persistent route to the same bits as the per-step kernels
-(``per_step=True``) and as its variants (other units a block), and its
-times include those
-variants' (the tree's own; a parent without them times its routes only).
-Its rates are the ``--rnn-q8`` paths', with a CTC train step's device
-events.
+``--q8`` or ``--f32`` with any of these: those kernels instead. ``--q8``'s
+checks also hold the persistent route to the same bits as the per-step
+kernels (``per_step=True``) and as its variants (other units a block), and
+its times include those variants' (the tree's own; a parent without them
+times its routes only). Its rates are the ``--rnn-q8`` paths', with a CTC
+train step's device events. ``--f32``'s checks run F32_CHECK_SHAPES
+(within ``chip_smoke.LSTM_TOL["float32"]``, the route each call took, the
+same bits twice); its times are hal's (256, 64, 2048), a completion token
+(T = 1, B = 1) and hac lstm:512's fp32 (385, 48, 1536), with cuDNN fp32's
+recurrence alone beside them; its rates hal's train and completion
+tokens/s and a train step's device time.
 
 ``--kernels-only`` leaves the rates out. DIR is another checkout of the
 repository (``git archive`` of a commit unpacked into a directory that
 .gitignore lists); each tree builds its own kernels into its own
 ``build/``.
 
-Checks: at the card tests' shapes (T = 1, B in {5, 48, 100}, H = 1000, a
-bf16 H that takes the per-step route) and chip_smoke's LSTM_SHAPES, K1,
-K1 with residuals and K2 against ``nn.lstm.lstm_scan`` /
+Checks (bf16): at the card tests' shapes (T = 1, B in {5, 48, 100}, H =
+1000, a bf16 H that takes the per-step route) and chip_smoke's
+LSTM_SHAPES, K1, K1 with residuals and K2 against ``nn.lstm.lstm_scan`` /
 ``lstm_scan_bwd`` within ``chip_smoke.LSTM_TOL``, the route each call
 took, and the same bits on a second run. Times: K1, K1 with residuals
 and K2 at the three timed shapes of LSTM_SHAPES, CUDA events around one
@@ -71,6 +81,17 @@ Q8_CHECK_SHAPES = ((1, 5, 1536), (3, 100, 1024), (9, 37, 256),
 # route's Q8_FWD_MIN_H comes from)
 Q8_SHORT = tuple((T, B, H) for H, B in ((512, 16), (1024, 16), (1536, 48))
                  for T in (16, 32, 64, 128))
+# --f32: the fp32 route (persist_f32) at the card tests' edges (B = 1 and
+# 5: 8-row tiles; B = 70: two 64-row tiles; H = 40, 200: partial slices
+# and clusters; H % 4 != 0 in K1: fma_step), hac's fp32 parity shape and
+# hal's (T = 1: a completion token)
+F32_CHECK_SHAPES = ((1, 1, 2048), (3, 5, 200), (9, 37, 200), (2, 64, 64),
+                    (9, 1, 96), (7, 5, 40), (4, 70, 512), (5, 3, 30),
+                    (6, 64, 2048), (5, 48, 1536), (3, 16, 1024),
+                    (256, 64, 2048))
+# --f32 times: hal's step (its first), a completion token, hac lstm:512's
+# fp32 parity shape
+F32_TIMED = ((256, 64, 2048), (1, 1, 2048), (385, 48, 1536))
 # --q8 variants, timed beside the routes (K1-q8 persistent at every
 # width): (label, the units a block may own, or None for UNITS); a plan
 # that does not fit leaves the call per-step
@@ -80,182 +101,127 @@ Q8_VARIANTS = (("K1-q8 persistent", None),
                ("K2-q8 at most 14 units a block", tuple(range(2, 16, 2))))
 
 
-# --phases: for each source, (anchor, stamp index, after, loop variable):
-# a stamp goes before the anchor's first occurrence (after it, with
-# after); K1 and K1-q8 stamp steps t, K2 and K2-q8 their products (s,
-# sidx); the stamps of each kernel, in order, bound its PHASES
-STAMPS = {
-    "lstm_fwd.cu": (
-        ("      if (t > 0 && b0 == 0) grid_wait(", 0, False, "t"),
-        ("      if (t > 0 && b0 == 0) grid_wait(bar, (unsigned)t * "
-         "gridDim.x);", 1, True, "t"),
-        ("      if (wkg < p.wk) store_partial<NPW>(", 2, False, "t"),
-        ("      hl::cluster_wait();         // every block's partials are "
-         "written", 3, True, "t"),
-        ("      hl::cluster_arrive();       // this block is done with the "
-         "partials", 4, False, "t"),
-        ("    if (t + 1 < T) grid_arrive(bar);", 5, True, "t")),
-    "lstm_bwd.cu": (
-        ("        if (b0 == 0) grid_wait(", 0, False, "s"),
-        ("        if (b0 == 0) grid_wait(bar, (unsigned)s * gridDim.x);", 1,
-         True, "s"),
-        ("        if (wkg < p.wk) store_partial<NPW>(", 2, False, "s"),
-        ("        hl::cluster_wait();     // every block's partials are "
-         "written", 3, True, "s"),
-        ("        hl::cluster_arrive();   // this block is done with the "
-         "partials", 4, False, "s"),
-        ("    if (t >= 0) grid_arrive(bar);", 5, True, "s")),
-    "lstm_q8.cu": (
-        ("      if (b0 == 0) ph.wait(bar);", 0, False, "t"),
-        ("      if (b0 == 0) ph.wait(bar);", 1, True, "t"),
-        ("      if (wkg < p.wk) store_partial<NPW>(", 2, False, "t"),
-        ("      hl::cluster_wait();         // every block's partials are "
-         "written", 3, True, "t"),
-        ("      hl::cluster_arrive();       // this block is done with the "
-         "partials", 4, False, "t"),
-        ("    if (t + 1 < T) ph.arrive(bar);", 5, True, "t"),
-        ("        ph.wait(bar);\n        int acc", 0, False, "sidx"),
-        ("        ph.wait(bar);", 1, True, "sidx"),
-        ("        if (wkg < p.wk) store_partial<NPW>(", 2, False, "sidx"),
-        ("        hl::cluster_wait();     // every block's partials are "
-         "written", 3, True, "sidx"),
-        ("        hl::cluster_arrive();   // this block is done with the "
-         "partials", 4, False, "sidx"),
-        ("      // while the others arrive", 5, False, "sidx"),
-        ("      if (threadIdx.x < rows) {\n        const float m = fmaxf(",
-         6, False, "sidx"),
-        ("      ph.arrive(bar);\n    }\n  }\n", 7, False, "sidx")),
-}
+# --phases: what each kernel's stamps (csrc/lstm_fwd.cu, lstm_bwd.cu,
+# lstm_q8.cu: block 0's thread 0, one item a step, hl::keep_phase) bound:
+# (label, stamp a, stamp b) reads median(b - a) over the steps clear of
+# the ends; b None reads stamp a itself (a duration)
 PHASES = {
-    "K1": ("wait", "product", "partials to the cluster barrier",
-           "gather and cell", "grid arrive"),
-    "K2": ("wait", "product", "partials to the cluster barrier",
-           "gather and delta", "grid arrive"),
-    "K1-q8": ("wait", "product", "partials to the cluster barrier",
-              "gather and cell", "grid arrive"),
-    # (the second arrive falls between the last stamp and the next
-    # step's first)
-    "K2-q8": ("wait for q", "product", "partials to the cluster barrier",
-              "gather and dequantize", "delta, row maxima, first arrive",
-              "dgates stores, wait for the maxima", "row scales, quantize"),
-}
-STAMP_DEF = """
-__device__ long long hl_phase[8][1024];
-__device__ __forceinline__ void stamp(int ph, int step) {
-  if (threadIdx.x == 0 && blockIdx.x == 0 && step < 1024)
-    hl_phase[ph][step] = clock64();
-}
-"""
-STAMP_READ = """
-extern "C" int hl_lstm_phases(void* out) {
-  return (int)cudaMemcpyFromSymbol(out, hl_phase, sizeof(hl_phase));
-}
-"""
-
-
-# --phases' ablations of the product (csrc/persist.cuh): (old, new) text
-ABLATIONS = {
-    "as is": (),
-    "without the loads": (
-        ("  for (int s = 0; s < ahead; ++s) load(s);\n", ""),
-        ("    mbar_wait(bars + 8 * slot, (par >> slot) & 1);\n", ""),
-        ("      load(s + stages);\n", "")),
-    "without the mma": (
-        ("      if (wkg >= wk || (wk > 1 && (s * STEPS + kk) % wk != wkg))",
-         "      if (true)"),),
+    "K1": (("wait", 0, 1), ("product", 1, 2),
+           ("partials to the cluster barrier", 2, 3),
+           ("gather and cell", 3, 4), ("grid arrive", 4, 5)),
+    "K2": (("wait", 0, 1), ("product", 1, 2),
+           ("partials to the cluster barrier", 2, 3),
+           ("gather and delta", 3, 4), ("grid arrive", 4, 5)),
+    "K1-q8": (("wait", 0, 1), ("product", 1, 2),
+              ("partials to the cluster barrier", 2, 3),
+              ("gather and cell", 3, 4), ("grid arrive", 4, 5)),
+    "K2-q8": (("wait for q", 0, 1), ("product", 1, 2),
+              ("partials to the cluster barrier", 2, 3),
+              ("gather and dequantize", 3, 4),
+              ("delta, row maxima, first arrive", 4, 5),
+              ("dgates stores, wait for the maxima", 5, 6),
+              ("row scales, quantize", 6, 7)),
+    # the fp32 kernels (persist_f32): stamps 2 and 7 are the ring's waits
+    # inside the product, all of them and the first slice's
+    "F32": (("grid wait", 0, 1), ("product", 1, 3),
+            ("of which ring waits", 2, None), ("the first slice's", 7, None),
+            ("exchange (partials, fold, cluster barrier, gather)", 3, 4),
+            ("cell or delta, grid arrive", 4, 5),
+            ("cluster wait, W prefetch", 5, 6)),
 }
 
 
-def phases_tree(dst, ablation=()):
-    """A copy of this tree's port and chip_smoke.py at ``dst`` with a
-    clock64 stamp at each phase boundary of the persistent kernels and C
-    entry points ``hl_lstm_phases_{fwd,bwd,q8}`` that read them back;
-    ``ablation`` edits csrc/persist.cuh further ((old, new) pairs)."""
-    import shutil
-    if dst.exists():
-        shutil.rmtree(dst)
-    shutil.copytree(HERE / "haloop_tpu_torch", dst / "haloop_tpu_torch",
-                    ignore=shutil.ignore_patterns("__pycache__"))
-    shutil.copy(HERE / "chip_smoke.py", dst / "chip_smoke.py")
-    csrc = dst / "haloop_tpu_torch" / "csrc"
-    persist = (csrc / "persist.cuh").read_text()
-    for old, new in ablation:
-        assert old in persist, old
-        persist = persist.replace(old, new)
-    (csrc / "persist.cuh").write_text(persist)
-    for name, stamps in STAMPS.items():
-        src = (csrc / name).read_text()
-        ns = "namespace persist_q8 {" if name == "lstm_q8.cu" else \
-            "namespace persist_step {"
-        src = src.replace(ns, STAMP_DEF + "\n" + ns, 1)
-        src += STAMP_READ.replace("hl_lstm_phases",
-                                  f"hl_lstm_phases_{name[5:-3]}")
-        for anchor, ph, after, var in stamps:
-            assert anchor in src, (name, anchor)
-            ind = anchor[:len(anchor) - len(anchor.lstrip())]
-            guard = "" if "t + 1 < T" in anchor or \
-                "t >= 0) grid_arrive" in anchor else "if (b0 == 0) "
-            st = f"{ind}{guard}stamp({ph}, {var});"
-            i = src.index(anchor)
-            if after:
-                i += len(anchor)
-                src = src[:i] + "\n" + st + src[i:]
-            else:
-                src = src[:i] + st + "\n" + src[i:]
-        (csrc / name).write_text(src)
-    kp = dst / "haloop_tpu_torch" / "kernels.py"
-    k = kp.read_text().replace(
-        '"hl_lstm_card": [_I, _P],',
-        '"hl_lstm_card": [_I, _P],\n    "hl_lstm_phases_fwd": [_P],\n'
-        '    "hl_lstm_phases_bwd": [_P],\n    "hl_lstm_phases_q8": [_P],')
-    kp.write_text(k)
+# --phases' ablations (kernels.ABLATIONS, compiled in by
+# kernels.trace_phases): the bf16 product (csrc/persist.cuh) without its
+# loads or its mma.sync; the fp32 one (csrc/persist_f32.cuh) without W's
+# streamed slices, or with its shared-memory operands loaded once a slice
+# instead of once a 4-column chunk (its FFMAs alone). The results are
+# wrong; the times are the point
+ABLATIONS = {"as is": (), "without the loads": ("HL_ABLATE_LOADS",),
+             "without the mma": ("HL_ABLATE_MMA",)}
+F32_ABLATIONS = {"as is": (),
+                 "without the W stream": ("HL_ABLATE_W_STREAM",),
+                 "without the product's loads": ("HL_ABLATE_OPERAND_LOADS",)}
+# --f32 --variants: plans other than the route's, timed in turns with it
+# at hal's shape (nn/lstm_cuda.py constants patched in this process):
+# (label, {constant: value})
+F32_VARIANTS = (("the plan", {}),
+                ("64 KB in flight", {"F32_IN_FLIGHT": 64 * 1024}),
+                ("96 KB in flight", {"F32_IN_FLIGHT": 96 * 1024}),
+                ("one k group (K2: a 160-row tile)", {"F32_WKS": (1,)}))
 
 
-def phase_report(tree, q8=False):
-    """Per-step medians of the stamped phases (cycles), K1 and K2 (or
-    K1-q8, both modes, and K2-q8; K1-q8 on its persistent route at every
-    width) at the three timed shapes, block 0 (a full block)."""
+def phase_cells(buf, kind, T):
+    """'label cycles' of each phase of ``kind`` from stamps ``buf`` (8 x
+    items), medians over the steps clear of the ends; and the cycles of a
+    whole step."""
+    import numpy as np
+    d = buf[:, 2:min(T, buf.shape[1]) - 2]
+    cells = [f"{label} {np.median(d[a] if b is None else d[b] - d[a]):.0f}"
+             for label, a, b in PHASES[kind]]
+    return np.median(d[0, 1:] - d[0, :-1]), cells
+
+
+def phase_report(tree, q8=False, f32=False, ablations=()):
+    """Per-step medians of the stamped phases (cycles): K1 and K2 in bf16
+    at the three timed shapes (or K1-q8, both modes, and K2-q8; K1-q8 on
+    its persistent route at every width), or with ``f32`` K1 (both
+    modes) and K2 in fp32 at hal's shape; block 0 (a full block); built
+    with ``ablations`` compiled in."""
     import numpy as np
     import torch
-    cs, kernels, lstm, lstm_cuda = load(tree)
+    cs, kernels, lstm, lstm_cuda = load(tree, phases=True,
+                                        ablations=ablations)
     lib = kernels.library()
     dev = torch.device("cuda", 0)
     if q8:
         lstm_cuda.Q8_FWD_MIN_H = 0
-    for T, B, H in TIMED:
+    for T, B, H in (F32_TIMED[:1] if f32 else TIMED):
         if q8:
             fargs, bargs = q8_inputs(torch, cs, lstm, T, B, H)
-            runs = (("K1-q8", lambda: lstm_cuda.lstm_fwd_q8_cuda(*fargs),
-                     lib.hl_lstm_phases_q8),
-                    ("K1-q8 residual", lambda: lstm_cuda.lstm_fwd_q8_cuda(
-                        *fargs, residuals=True), lib.hl_lstm_phases_q8),
-                    ("K2-q8", lambda: lstm_cuda.lstm_bwd_q8_cuda(*bargs),
-                     lib.hl_lstm_phases_q8))
+            runs = (("K1-q8", "K1-q8",
+                     lambda: lstm_cuda.lstm_fwd_q8_cuda(*fargs),
+                     lib.hl_lstm_q8_phases),
+                    ("K1-q8 residual", "K1-q8",
+                     lambda: lstm_cuda.lstm_fwd_q8_cuda(*fargs,
+                                                        residuals=True),
+                     lib.hl_lstm_q8_phases),
+                    ("K2-q8", "K2-q8",
+                     lambda: lstm_cuda.lstm_bwd_q8_cuda(*bargs),
+                     lib.hl_lstm_q8_phases))
         else:
-            w, xp, h0, c0 = cs.lstm_inputs(torch, dev, T, B, H,
-                                           torch.bfloat16)
+            dtype = torch.float32 if f32 else torch.bfloat16
+            w, xp, h0, c0 = cs.lstm_inputs(torch, dev, T, B, H, dtype)
             bargs = bwd_inputs(torch, cs, lstm, T, B, H, w, xp, h0, c0)
-            runs = (("K1", lambda: lstm_cuda.lstm_fwd_cuda(w, xp, h0, c0),
-                     lib.hl_lstm_phases_fwd),
-                    ("K2", lambda: lstm_cuda.lstm_bwd_cuda(*bargs),
-                     lib.hl_lstm_phases_bwd))
-        for kind, fn, get in runs:
+            k1, k2 = ("F32", "F32") if f32 else ("K1", "K2")
+            runs = (("K1", k1, lambda: lstm_cuda.lstm_fwd_cuda(w, xp, h0, c0),
+                     lib.hl_lstm_fwd_phases),
+                    ("K2", k2, lambda: lstm_cuda.lstm_bwd_cuda(*bargs),
+                     lib.hl_lstm_bwd_phases))
+            if f32:
+                runs = runs[:1] + (
+                    ("K1 residual", k1, lambda: lstm_cuda.lstm_fwd_cuda(
+                        w, xp, h0, c0, residuals=True),
+                     lib.hl_lstm_fwd_phases),) + runs[1:]
+        for name, kind, fn, get in runs:
             fn()
             torch.cuda.synchronize()
-            buf = np.zeros((8, 1024), np.int64)
+            buf = np.zeros((kernels.PHASES, kernels.PHASE_ITEMS), np.int64)
             kernels.check(get(buf.ctypes.data), "hl_lstm_phases")
-            d = buf[:, 2:min(T, 1024) - 2]   # steps clear of the ends
-            cells = [f"{name} {np.median(d[i + 1] - d[i]):.0f}"
-                     for i, name in enumerate(PHASES[kind.split()[0]])]
-            step = np.median(d[0, 1:] - d[0, :-1])
-            print(f"{kind} ({T}, {B}, {H}) cycles a step: {step:.0f}; " +
+            step, cells = phase_cells(buf, kind, T)
+            print(f"{name} ({T}, {B}, {H}) cycles a step: {step:.0f}; " +
                   ", ".join(cells), flush=True)
 
 
-def load(tree):
+def load(tree, phases=False, ablations=()):
+    """chip_smoke, kernels, nn.lstm and nn.lstm_cuda of ``tree``; with
+    ``phases`` its kernels built with the phase stamps (and
+    ``ablations``) compiled in."""
     sys.path.insert(0, str(tree))
     import chip_smoke
     from haloop_tpu_torch import kernels
+    if phases:
+        kernels.trace_phases(*ablations)
     from haloop_tpu_torch.nn import lstm, lstm_cuda
     assert Path(chip_smoke.__file__).resolve().parent == tree.resolve()
     return chip_smoke, kernels, lstm, lstm_cuda
@@ -476,6 +442,184 @@ class variant:
         self.m.UNITS, self.m.Q8_FWD_MIN_H = self.saved
 
 
+def f32_checks(tree):
+    """K1 (both modes) and K2 in fp32 against the plain versions within
+    LSTM_TOL["float32"] at F32_CHECK_SHAPES: the route each call took, the
+    same bits twice, and the residual mode's ys/h/c those of K1."""
+    import torch
+    cs, kernels, lstm, lstm_cuda = load(tree)
+    kernels.library()
+    print(f"build {kernels.build_seconds} s", flush=True)
+    for line in ptxas_lines(kernels.build_log, "persist_f32"):
+        print("ptxas:", line, flush=True)
+    dev = torch.device("cuda", 0)
+    sms, smem, ncl = lstm_cuda.card(dev)
+    tol = cs.LSTM_TOL["float32"]
+    bad = []
+    for T, B, H in F32_CHECK_SHAPES:
+        w, xp, h0, c0 = cs.lstm_inputs(torch, dev, T, B, H, torch.float32)
+        routes = {k: lstm_cuda.route(k, torch.float32, H, B, sms, smem,
+                                     ncl[k]) for k in ("fwd", "bwd")}
+        before = dict(lstm_cuda.route_launches)
+        out = (*lstm_cuda.lstm_fwd_cuda(w, xp, h0, c0),
+               *lstm_cuda.lstm_fwd_cuda(w, xp, h0, c0, residuals=True))
+        bargs = bwd_inputs(torch, cs, lstm, T, B, H, w, xp, h0, c0)
+        out += lstm_cuda.lstm_bwd_cuda(*bargs)
+        torch.cuda.synchronize()
+        took = {k: v - before[k] for k, v in lstm_cuda.route_launches.items()
+                if v != before[k]}
+        want_took = {f"fwd_{routes['fwd'][0]}": 2,
+                     f"bwd_{routes['bwd'][0]}": 1}
+        dys, acts_p, cs_p, c0r, _, dh, dc = bargs
+        want = (*lstm.lstm_scan(w, xp, h0, c0),
+                *lstm.lstm_scan(w, xp, h0, c0, residuals=True),
+                *lstm.lstm_scan_bwd(dys, acts_p, torch.cat(
+                    [c0r[None], cs_p[:-1]]), cs_p, w, dh, dc))
+        names = ("ys", "h", "c", "ys_r", "h_r", "c_r", "acts", "cs",
+                 "dgates", "dh0", "dc0")
+        res = {n: cs.within(torch, g, e, tol)
+               for n, g, e in zip(names, out, want)}
+        again = (*lstm_cuda.lstm_fwd_cuda(w, xp, h0, c0),
+                 *lstm_cuda.lstm_fwd_cuda(w, xp, h0, c0, residuals=True),
+                 *lstm_cuda.lstm_bwd_cuda(*bargs))
+        twice = all(torch.equal(a, b) for a, b in zip(out, again))
+        same_r = all(torch.equal(a, b) for a, b in zip(out[:3], out[3:6]))
+        ok = (all(v[0] for v in res.values()) and twice and same_r and
+              took == want_took)
+        print(f"{'ok ' if ok else 'BAD'} fp32 (T, B, H) = {(T, B, H)}: "
+              f"routes {took}; " + ", ".join(
+                  f"max|d{k}| {v[1]:.2e}" for k, v in res.items()
+                  if k in ("ys", "acts", "cs", "dgates", "dh0", "dc0")) +
+              f"; same bits twice {twice}; residual mode's ys/h/c those "
+              f"of K1 {same_r}; plans fwd {routes['fwd'][1]} bwd "
+              f"{routes['bwd'][1]}", flush=True)
+        if not ok:
+            bad.append((T, B, H))
+    return bad
+
+
+def cudnn_recurrence(torch, cs, T, B, H, dev):
+    """cuDNN fp32's recurrence alone at (T, B, H), as chip_smoke.py phase
+    29 times it: nn.LSTM on inputs of width 1, frozen weights (TF32 off):
+    {forward, forward under autograd, backward to x}."""
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(T + H)
+    ref = torch.nn.LSTM(1, H).to(dev).requires_grad_(False)
+    x = torch.randn((T, B, 1), generator=g).to(dev)
+    out = {}
+    with torch.inference_mode():
+        out["forward"] = cs.cuda_ms(lambda: ref(x))
+    xg = x.clone().requires_grad_(True)
+    out["under autograd"] = cs.cuda_ms(lambda: ref(xg))
+    y = ref(xg)[0]
+    grad = torch.randn_like(y)
+    out["backward"] = cs.cuda_ms(lambda: torch.autograd.grad(
+        y, (xg,), grad, retain_graph=True))
+    return out
+
+
+def f32_times(tree):
+    """K1, K1 with residuals and K2 in fp32 at F32_TIMED (CUDA events
+    around one call behind a spin, median of 5), cuDNN's recurrence alone
+    at hal's shape beside them."""
+    import torch
+    cs, kernels, lstm, lstm_cuda = load(tree)
+    kernels.library()
+    dev = torch.device("cuda", 0)
+    res = {}
+    for T, B, H in F32_TIMED:
+        w, xp, h0, c0 = cs.lstm_inputs(torch, dev, T, B, H, torch.float32)
+        key = f"fp32 ({T}, {B}, {H})"
+        res[f"K1 {key}"] = cs.cuda_ms(
+            lambda: lstm_cuda.lstm_fwd_cuda(w, xp, h0, c0))
+        if T == 1:
+            continue
+        res[f"K1 residual {key}"] = cs.cuda_ms(
+            lambda: lstm_cuda.lstm_fwd_cuda(w, xp, h0, c0, residuals=True))
+        bargs = bwd_inputs(torch, cs, lstm, T, B, H, w, xp, h0, c0)
+        res[f"K2 {key}"] = cs.cuda_ms(lambda: lstm_cuda.lstm_bwd_cuda(*bargs))
+        if (T, B, H) == F32_TIMED[0]:
+            for k, v in cudnn_recurrence(torch, cs, T, B, H, dev).items():
+                res[f"cuDNN recurrence alone, {k} {key}"] = v
+    return res
+
+
+def f32_variants(tree):
+    """K1, K1 with residuals and K2 in fp32 at hal's shape with each of
+    F32_VARIANTS' plans, in turns, twice; each with its plans."""
+    import torch
+    cs, kernels, lstm, lstm_cuda = load(tree)
+    kernels.library()
+    dev = torch.device("cuda", 0)
+    sms, smem, ncl = lstm_cuda.card(dev)
+    T, B, H = F32_TIMED[0]
+    w, xp, h0, c0 = cs.lstm_inputs(torch, dev, T, B, H, torch.float32)
+    bargs = bwd_inputs(torch, cs, lstm, T, B, H, w, xp, h0, c0)
+    for _ in range(2):
+        for label, patch in F32_VARIANTS:
+            saved = {k: getattr(lstm_cuda, k) for k in patch}
+            for k, v in patch.items():
+                setattr(lstm_cuda, k, v)
+            try:
+                ms = [cs.cuda_ms(fn) for fn in (
+                    lambda: lstm_cuda.lstm_fwd_cuda(w, xp, h0, c0),
+                    lambda: lstm_cuda.lstm_fwd_cuda(w, xp, h0, c0,
+                                                    residuals=True),
+                    lambda: lstm_cuda.lstm_bwd_cuda(*bargs))]
+                plans = [lstm_cuda.route(k, torch.float32, H, B, sms, smem,
+                                         ncl[k])[1] for k in ("fwd", "bwd")]
+            finally:
+                for k, v in saved.items():
+                    setattr(lstm_cuda, k, v)
+            print(f"{label}: K1 {ms[0]:.4f} ms, K1 residual {ms[1]:.4f}, "
+                  f"K2 {ms[2]:.4f}; plans fwd {plans[0]} bwd {plans[1]}",
+                  flush=True)
+
+
+def f32_rates(tree):
+    """hal's train step (tokens/s, median of 5 host-timed steps that end in
+    a host read; its device time from torch.profiler) and completion
+    (tokens/s, 256 top-1 tokens at B = 1) at the rnnlm arch's 1 x 2048,
+    64 x 256, as chip_smoke.py phase 30 drives them."""
+    import math
+    import tempfile
+    import torch
+    cs, kernels, _, _ = load(tree)
+    kernels.library()
+    from haloop_tpu_torch import rnnlm
+    from haloop_tpu_torch.models import rnn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    T, B, H = cs.HAL_SHAPE
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = cs.hal_corpus(tmp)
+        args = rnnlm.make_parser().parse_args([
+            "--train", f"bytes:{corpus}", "--rnn-size", str(H),
+            "--num-layers", "1", "--batch-size", str(B), "--bptt-len",
+            str(T), "--device", "cuda"])
+        system = rnnlm.System(args)
+    chunk = torch.from_numpy(system.dataset[0].astype("int64")).to(
+        system.device)
+    inputs = torch.cat([system.prompt, chunk[:-1]])
+    state = [system.state]
+
+    def step():
+        state[0], loss, _, _ = system.train_step(inputs, chunk, state[0])
+        assert math.isfinite(loss.item())
+    ms, _ = cs.host_ms(torch, step)
+    out["hal train tokens/s"] = B * T / ms * 1e3
+    out["hal train step device ms"] = device_ms(torch, step)
+    x, st = system.prepare_prompt(b"\nthe ")
+    with torch.inference_mode():
+        logits, st = rnn.decoder_apply(system.params, x, st,
+                                       num_layers=system.num_layers)
+    l0 = logits[-1, 0]
+    cms, _ = cs.host_ms(torch, lambda: system.sample_ids(l0, st, T, 1))
+    out["hal completion tokens/s"] = T / cms * 1e3
+    return out
+
+
 def q8_inputs(torch, cs, lstm, T, B, H, bwd=True):
     """(fwd args, bwd args) of K1-q8 and K2-q8 as chip_smoke.py phase 5b
     makes them: wq, s from the bf16 W; K2-q8 on the plain residuals (None
@@ -651,9 +795,16 @@ def main():
     ap.add_argument("--kernels-only", action="store_true",
                     help="with --against or --times-only: no rates")
     ap.add_argument("--phases", action="store_true")
-    ap.add_argument("--q8", action="store_true",
-                    help="K1-q8 and K2-q8 instead of K1 and K2")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--q8", action="store_true",
+                      help="K1-q8 and K2-q8 instead of K1 and K2")
+    mode.add_argument("--f32", action="store_true",
+                      help="K1 and K2 in fp32 (hal's route)")
+    ap.add_argument("--variants", action="store_true",
+                    help="with --f32: other plans timed beside the route's")
     ap.add_argument("--phase-report", action="store_true",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--ablate", nargs="*", default=[],
                     help=argparse.SUPPRESS)
     a = ap.parse_args()
     import torch
@@ -662,31 +813,36 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
+    flag = ["--q8"] if a.q8 else ["--f32"] if a.f32 else []
+    if a.variants:
+        print(card, flush=True)
+        f32_variants(a.tree)
+        return
     if a.phase_report:
-        phase_report(a.tree, a.q8)
+        phase_report(a.tree, a.q8, a.f32, a.ablate)
         return
     if a.phases:
         print(card, flush=True)
-        for i, (label, edits) in enumerate(ABLATIONS.items()):
+        for label, ablations in (F32_ABLATIONS if a.f32
+                                 else ABLATIONS).items():
             print(f"-- {label}", flush=True)
-            dst = HERE / "build" / f"lstm_phases{i}"
-            phases_tree(dst, edits)
-            subprocess.run([sys.executable, __file__, "--tree", str(dst),
-                            "--phase-report"] + (["--q8"] if a.q8 else []),
+            subprocess.run([sys.executable, __file__, "--tree", str(a.tree),
+                            "--phase-report", "--ablate", *ablations] + flag,
                            check=True)
         return
+    times_of = q8_times if a.q8 else f32_times if a.f32 else times
+    rates_of = q8_rates if a.q8 else f32_rates if a.f32 else rates
     if a.times_only:
-        res = (q8_times if a.q8 else times)(a.tree)
+        res = times_of(a.tree)
         if not a.kernels_only:
-            res.update((q8_rates if a.q8 else rates)(a.tree))
+            res.update(rates_of(a.tree))
         print(json.dumps(res), flush=True)
         return
     print(card, flush=True)
     if a.against:
         runs = []
         for tree in (a.against, a.tree, a.tree, a.against):
-            flags = (["--kernels-only"] if a.kernels_only else []) + \
-                (["--q8"] if a.q8 else [])
+            flags = (["--kernels-only"] if a.kernels_only else []) + flag
             r = subprocess.run([sys.executable, __file__, "--tree",
                                 str(tree), "--times-only", *flags],
                                capture_output=True, text=True)
@@ -701,8 +857,8 @@ def main():
         print(json.dumps({"card": card, "runs": [
             {"tree": str(t), "ms": res} for t, res in runs]}), flush=True)
         return
-    bad = (q8_checks if a.q8 else checks)(a.tree)
-    for label, ms in (q8_times if a.q8 else times)(a.tree).items():
+    bad = (q8_checks if a.q8 else f32_checks if a.f32 else checks)(a.tree)
+    for label, ms in times_of(a.tree).items():
         print(f"{label}: {ms:.4f} ms", flush=True)
     if bad:
         raise SystemExit(f"disagree with the plain versions: {bad}")

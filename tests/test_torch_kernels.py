@@ -45,7 +45,8 @@ rounding of each output). K1-q8 and K2-q8: rel L2 limits placed between
 the kernel against its plain version and two planted faults
 (``chip_smoke.K1Q8_REL``, ``K2Q8_REL``). K1 (both modes) and K2 in bf16,
 K1-q8, K2-q8, K4, K6, K8a, K8b, K9a, K9b, K11, K12 and K13 give the same
-bits on every run.
+bits on every run; so do K1 and K2 in fp32 on their persistent route,
+held to ``chip_smoke.LSTM_TOL["float32"]`` there.
 """
 
 import copy
@@ -315,6 +316,58 @@ def test_lstm_persistent_edges_and_the_step_route(cuda, T, B, H):
     c_prev = torch.cat([c0[None], cs[:-1]])
     ref = lstm.lstm_scan_bwd(dys, acts, c_prev, cs, w, dh, dc)
     for g, r in zip(got, ref):
+        assert chip_smoke.within(torch, g, r, tol)[0]
+
+
+# ------------------------ the persistent fp32 kernels (K1, K2; persist_f32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H", [
+    (1, 1, 2048),                       # a hal completion token
+    (3, 5, 200),                        # an 8-row tile, partial slices
+    (9, 37, 200),
+    (4, 70, 512),                       # two 64-row tiles
+    (5, 48, 1536),                      # hac lstm:512's fp32 parity width
+    (6, 64, 2048),                      # hal's width and batch
+    (5, 3, 30),                         # H % 4 != 0: K1 per step, K2 not
+])
+def test_lstm_fp32_persistent_kernels_match_plain(cuda, T, B, H):
+    """K1 (both modes) and K2 in fp32 on the route ``lstm_cuda.route``
+    gives (persist_f32 wherever the fp32 plan fits): against the plain
+    versions within chip_smoke.LSTM_TOL["float32"], the same bits twice,
+    and the same bits with every slice of W streamed (the plan's resident
+    split changes no sum)."""
+    sms, smem, ncl = lstm_cuda.card(cuda)
+    routes = {k: lstm_cuda.route(k, torch.float32, H, B, sms, smem,
+                                 ncl[k])[0] for k in ("fwd", "bwd")}
+    assert routes == {"fwd": "fma_step" if H % 4 else "persist_f32",
+                      "bwd": "persist_f32"}
+    tol = chip_smoke.LSTM_TOL["float32"]
+    args = _lstm_inputs(T, B, H, torch.float32, cuda, seed=T + B + H)
+    out, took = _route_taken(
+        lambda: lstm_cuda.lstm_fwd_cuda(*args, residuals=True))
+    assert took == {f"fwd_{routes['fwd']}": 1}
+    assert all(torch.equal(a, b) for a, b in zip(
+        out, lstm_cuda.lstm_fwd_cuda(*args, residuals=True)))
+    with chip_smoke.all_streamed():
+        streamed = lstm_cuda.lstm_fwd_cuda(*args, residuals=True)
+    assert all(torch.equal(a, b) for a, b in zip(out, streamed))
+    for got, ref in zip(out, lstm.lstm_scan(*args, residuals=True)):
+        assert chip_smoke.within(torch, got, ref, tol)[0]
+    w, acts, cs, c0, dys, dh, dc = _lstm_bwd_inputs(T, B, H, torch.float32,
+                                                    cuda, seed=T + B + H)
+    bargs = (dys, acts, cs, c0, w, dh, dc)
+    got, took = _route_taken(lambda: lstm_cuda.lstm_bwd_cuda(*bargs))
+    assert took == {"bwd_persist_f32": 1}
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, lstm_cuda.lstm_bwd_cuda(*bargs)))
+    with chip_smoke.all_streamed():
+        streamed = lstm_cuda.lstm_bwd_cuda(*bargs)
+    assert all(torch.equal(a, b) for a, b in zip(got, streamed))
+    c_prev = torch.cat([c0[None], cs[:-1]])
+    for g, r in zip(got, lstm.lstm_scan_bwd(dys, acts, c_prev, cs, w, dh,
+                                            dc)):
         assert chip_smoke.within(torch, g, r, tol)[0]
 
 
@@ -2231,3 +2284,23 @@ def test_trace_phases_builds_a_library_of_its_own(monkeypatch):
     monkeypatch.setattr(kernels, "_lib", object())
     with pytest.raises(RuntimeError, match="plain library"):
         kernels.trace_phases()
+
+
+@pytest.mark.parametrize("ablation", kernels.ABLATIONS)
+def test_trace_phases_compiles_an_ablation_in(monkeypatch, ablation):
+    """kernels.trace_phases(ablation): the macro beside -DHL_PHASES in the
+    flags, a build directory of its own, and the macro read by a kernel
+    source; a name outside kernels.ABLATIONS is refused."""
+    for name in ("NVCC_FLAGS", "_SIGNATURES"):
+        monkeypatch.setattr(kernels, name, copy.copy(getattr(kernels, name)))
+    for name in ("BUILD", "LIB", "_lib"):
+        monkeypatch.setattr(kernels, name, getattr(kernels, name))
+    monkeypatch.setattr(kernels, "_lib", None)
+    with pytest.raises(ValueError, match="no ablation"):
+        kernels.trace_phases("HL_ABLATE_NOTHING")
+    kernels.trace_phases(ablation)
+    assert kernels.NVCC_FLAGS[-2:] == ["-DHL_PHASES", f"-D{ablation}"]
+    assert kernels.BUILD.name == \
+        f"haloop_tpu_torch_phases_{ablation.lower()}"
+    src = "".join(p.read_text() for p in kernels._sources())
+    assert f"#ifdef {ablation}" in src or f"#ifndef {ablation}" in src
