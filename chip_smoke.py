@@ -4078,11 +4078,82 @@ def k6_faults(torch, flash, got, args, ragged):
     check(not ok, f"K6's check passes a planted fault: {name}")
 
 
+def k6_plan_line(flash_cuda, args):
+    """The fp32 K6 plan of the backward of ``args`` as one line's text."""
+    p = flash_cuda._bwd_args(*args).plan
+    return (f"K6a {p.dq_splits} split(s) of {p.dq_tiles} query tiles "
+            f"({p.dq_blocks} blocks), K6b {p.dkv_splits} of {p.dkv_tiles} "
+            f"key tiles ({p.dkv_blocks} blocks)")
+
+
+def k6_f32_cases(torch, flash, flash_cuda, q, k, v, do):
+    """fp32 K6a/K6b at hala's N = 2 against the plain backward (K6_TOL) on
+    K5's o and lse: K6_RAGGED's first two key lengths (causal), causal at
+    t0 = 64, and one row of key length 0 (its gradients exactly 0)."""
+    N, T = q.shape[0], q.shape[2]
+    dev = q.device
+    for label, kvl, t0 in (
+            (f"key lengths {K6_RAGGED[:N]}", K6_RAGGED[:N], 0),
+            ("t0 = 64", [T] * N, 64),
+            ("key lengths [0, 700]", [0, 700], 0)):
+        kvl = torch.tensor(kvl, dtype=torch.int32, device=dev)
+        o, lse = flash_cuda.flash_fwd_cuda(q, k, v, kvl, True, t0,
+                                           with_lse=True)
+        args = (q, k, v, kvl, True, t0, o, lse, do)
+        got = flash_cuda.flash_bwd_cuda(*args)
+        torch.cuda.synchronize()
+        ok, reads = k6_gate(got, flash._backward_reference(*args),
+                            "float32")
+        zero = all(not g[i].any() for g in got
+                   for i in range(N) if int(kvl[i]) == 0)
+        print(f"K6 {tuple(q.shape)} causal float32, {label} "
+              f"({k6_plan_line(flash_cuda, args)}): " + ", ".join(
+                  f"{tag} max|d| {rmax:.3e} of the largest"
+                  for tag, (rmax, _, _) in reads.items()) +
+              f" (tol {K6_TOL['float32']}); zero-length rows all 0: {zero}",
+              flush=True)
+        check(ok and zero, f"fp32 K6 disagrees with _backward_reference "
+                           f"at {label}")
+
+
+def k6_split_fault(torch, flash, flash_cuda, got, args):
+    """fp32 K6's planted fault at a split shape, emulated from the plain
+    version: the last split's range left out, K6a's keys (dq over the
+    keys before that split's first tile) and K6b's queries (dk and dv
+    with do zero from that split's first query tile on). It must read
+    beyond K6_TOL["float32"]; raises if the gate would pass it."""
+    q, k, v, kvl, causal, t0, o, lse, do = args
+    T, S = q.shape[2], k.shape[2]
+    p = flash_cuda._bwd_args(*args).plan
+    tile = flash_cuda.F32_TILE
+    check(p.dq_splits > 1 and p.dkv_splits > 1 and not causal,
+          "the split fault needs a split, non-causal shape")
+    cut_k = flash_cuda.f32_split_range(-(-S // tile), p.dq_splits,
+                                       p.dq_splits - 1)[0] * tile
+    cut_q = flash_cuda.f32_split_range(-(-T // tile), p.dkv_splits,
+                                       p.dkv_splits - 1)[0] * tile
+    dq = flash._backward_reference(q, k, v, torch.clamp(kvl, max=cut_k),
+                                   causal, t0, o, lse, do)[0]
+    do_cut = do.clone()
+    do_cut[:, :, cut_q:] = 0
+    dk, dv = flash._backward_reference(q, k, v, kvl, causal, t0, o, lse,
+                                       do_cut)[1:]
+    ok, reads = k6_gate(got, (dq, dk, dv), "float32")
+    print(f"  planted fault, the last split's range left out (keys from "
+          f"{cut_k}, queries from {cut_q}): " + ", ".join(
+              f"{tag} max|d| {rmax:.3e} of the largest"
+              for tag, (rmax, _, _) in reads.items()) +
+          f" (tol {K6_TOL['float32']}; the gate must fail)", flush=True)
+    check(not ok, "fp32 K6's check passes a planted fault: the last "
+                  "split's range left out")
+
+
 def phase_flash_bwd(torch, dev):
     """K6a/K6b at hala's (8, 12, 1024, 64) causal bf16 and fp32 at N=2,
     against the plain backward on K5's o and lse; in bf16 also at ragged
-    key lengths, with two planted faults (``k6_faults``); K5 with its lse
-    at the same shape."""
+    key lengths, with two planted faults (``k6_faults``); in fp32 also at
+    ragged key lengths, t0 > 0 and a zero key length (``k6_f32_cases``);
+    K5 with its lse at the same shape."""
     import torch.nn.functional as F
     from haloop_tpu_torch.ops import flash, flash_cuda
     H, T, D = 12, 1024, 64
@@ -4132,6 +4203,8 @@ def phase_flash_bwd(torch, dev):
                       "lengths")
             k6_faults(torch, flash, got_r, args_r, ragged=True)
             del got_r, o_g, lse_g, args_r
+        else:
+            k6_f32_cases(torch, flash, flash_cuda, q, k, v, do)
         del got, again
         # K6a and K6b timed apart through the wrapper's private stages
         b = flash_cuda._bwd_args(*args)
@@ -5150,11 +5223,21 @@ def f32_fault_units(torch, dev, kind, H, B):
                         device=dev)
 
 
-def kernels_a_call(torch, fn, name):
+def kernels_a_call(torch, fn, name, tries=8):
     """The device kernels whose name holds ``name`` that one call of fn
-    launched, counted from a profile."""
-    _, by_name = profile_step(torch, fn, "one call")
-    return sum(n for k, (n, _) in by_name.items() if name in k)
+    launched, counted from a profile. The profiler's device records can go
+    missing: on the card a profile of a 17 ms K1 call once held no record
+    of its kernel. So a reading of none is taken again, up to ``tries``
+    profiles in all, and each miss is printed; a call that launches no
+    such kernel still reads 0, and one that launches more reads more at
+    the first profile."""
+    for attempt in range(1, tries + 1):
+        _, by_name = profile_step(torch, fn, "one call")
+        n = sum(n for k, (n, _) in by_name.items() if name in k)
+        if n or attempt == tries:
+            return n
+        print(f"profiler: no {name} kernel recorded in profile {attempt} of "
+              f"{tries}; profiling the call again", flush=True)
 
 
 class all_streamed:
@@ -5741,10 +5824,14 @@ def grad_norm_kernels(torch, dev):
           f"e6ctc-d4:512, an item): max|do| {err:.3e}, max|dlse| "
           f"{lse_err:.3e} (tol {ATTN_TOL['float32']}, lse 1e-3); " +
           ", ".join(f"{t} max|d| {r[0]:.3e} of the largest" for t, r in
-                    reads.items()) + f" (tol {K6_TOL['float32']})",
-          flush=True)
+                    reads.items()) + f" (tol {K6_TOL['float32']}); "
+          f"{k6_plan_line(flash_cuda, fargs)}", flush=True)
     check(ok and lse_err <= 1e-3 and ok6,
           f"the fp32 flash kernels disagree with plain at {GN_ATTN}")
+    again = flash_cuda.flash_bwd_cuda(*fargs)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"fp32 K6a/K6b are not deterministic at {GN_ATTN}")
+    k6_split_fault(torch, flash, flash_cuda, got, fargs)
     pairs = N * Tq * Tq
     b = flash_cuda._bwd_args(*fargs)
     flash_cuda._bwd_dq(b)                    # the scratch that K6b reads

@@ -83,9 +83,48 @@
 // block adds into another's output: no atomics, every sum in a fixed
 // order, the gradients the same bits from run to run. The scratch of lse
 // log2(e) and delta is (N*H, 2, Tp) fp32, Tp = T rounded up to 4, so that
-// its rows meet TMA's 16-byte stride rule at any T. fp32 inputs take
-// CUDA-core kernels, one thread per query row (K6a) or per key (K6b),
-// with a (N*H, T) delta.
+// its rows meet TMA's 16-byte stride rule at any T.
+//
+// fp32 (bwd_dq_f32, bwd_dkv_f32). Every product and sum is exact fp32 on
+// the CUDA cores (FFMA): no TF32 in any form, not even a 3xTF32 split,
+// since the port's fp32 products run with TF32 off and the --grad-norms
+// rows this mode serves are held to the JAX package's. What bounds them:
+// at --grad-norms' (1, 8, 384, 64) non-causal, 453 MFLOP (K6a, three
+// products a pair) and 604 (K6b, four) against 4.7 MB, so the fp32 rate
+// (67 TFLOP/s: 6.9 and 9.1 us) and not the bytes; the card fills only
+// if each block keeps its FFMA pipes busy and there are blocks for all
+// 132 SMs. So each block owns a 64-row output tile (K6a: 64 query rows,
+// Q and dO resident; K6b: 64 keys, K and V resident) with 128 threads,
+// and streams the other side's 64-row tiles (K6a: k and v through a
+// 2-stage cp.async ring, the next tile loading while this one is
+// computed; K6b: q, do and their lse and delta, one tile at a time, two
+// blocks an SM covering each other's loads). Tiles lie in shared memory
+// row-major with padded rows, so a thread's 4 x 8 patch of S = Q K^T and
+// dP = dO V^T (K6b: S^T = K Q^T, dP^T = V dO^T) reads its operands as
+// float4 with no bank conflict: 12 loads of 16 bytes a 128 FFMA,
+// SGEMM-style register tiling, the two products in one loop so that a
+// step has 64 independent sums. On an H100 the FFMA pipes run at ~42% of
+// their peak this way (scripts/flash_fwd_probe.py --clocks), with one or
+// two blocks an SM alike.
+// P and dS are computed on the patch, written to shared memory (K6a: dS
+// over the stage's V, which dP has read; K6b: P^T and dS^T tiles), and
+// dQ += dS K (K6b: dV += P^T dO, dK += dS^T Q) runs the same tiling into
+// each thread's 4 x D/8 patch of the output. The causal and key-length
+// skips are the bf16 kernels': ``key_end`` bounds K6a's key tiles,
+// ``first_query_tile`` K6b's query tiles, a key tile at or past
+// kv_lengths[n] has none, and the mask runs only on tiles that straddle
+// a boundary. At small N H the tiles alone leave most SMs idle (48 tiles
+// at (1, 8, 384, 64)), so flash_cuda.bwd_f32_plan splits the reduction
+// (keys for K6a, queries for K6b) into P ranges of whole tiles, a block
+// each, each output tile's live tiles shared out evenly (``split_range``,
+// so causal splits balance by live tiles); P is 1 where the tiles fill
+// the card. Each split writes its sums to an fp32 scratch; the last split
+// of a tile to finish, found by a per-tile arrival counter (K12's
+// pattern), adds them in split order, writes the output and sets the
+// counter back to 0: one launch a kernel call, no atomics in any sum, the
+// same bits from run to run. K6a's blocks run the latest query tiles
+// first and K6b's the earliest key tiles (causal: the ones with the most
+// work). delta is (N*H, T) fp32, written by K6a's split 0.
 // Later perf_opt: one pass for dq, dk and dv with a fixed-order dq
 // reduction; the consumers' ping-pong.
 
@@ -100,8 +139,8 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int BQ = 64;        // fp32: query rows a tile
-constexpr int BK = 64;        // fp32: keys a tile
+constexpr int FT = 64;        // fp32: query rows a tile, keys a tile
+constexpr int FTHREADS = 128; // fp32: 16 x 8 threads, a 4 x 8 patch each
 constexpr int BM = 128;       // bf16: K6a's query rows an item, K6b's keys
 constexpr int BN = 128;       // bf16: K6a's keys a tile
 constexpr int BT = 64;        // bf16: K6b's query rows a tile
@@ -117,27 +156,8 @@ struct Dims {
   int dq_sn, dq_sh, dq_st, dk_sn, dk_sh, dk_st, dv_sn, dv_sh, dv_st;
 };
 
-// rows [r0, r0 + 64) of a (rows, HD) fp32 matrix with row stride st into
-// shared memory [64][LDS] (LDS = HD, or HD + 1 for rows that one thread
-// reads alone); rows past ``rows`` are zero
-template <int HD, int LDS>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
-                                              int r0, int rows, int st) {
-  for (int i = threadIdx.x; i < 64 * HD / 4; i += blockDim.x) {
-    const int r = i / (HD / 4), c = (i % (HD / 4)) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < rows)
-      val = *reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * st + c);
-    float* out = dst + r * LDS + c;
-    out[0] = val.x;
-    out[1] = val.y;
-    out[2] = val.z;
-    out[3] = val.w;
-  }
-}
-
 // the keys a query tile of QT rows starting at q0 must visit: [0, kend)
-template <int QT = BQ>
+template <int QT = FT>
 __device__ __forceinline__ int key_end(int kvlen, int causal, int t0, int q0) {
   int kend = kvlen;
   if (causal) kend = min(kend, t0 + q0 + QT);   // keys <= the last row
@@ -145,7 +165,7 @@ __device__ __forceinline__ int key_end(int kvlen, int causal, int t0, int q0) {
 }
 
 // the first query tile (of QT rows) that can see key k0
-template <int QT = BQ>
+template <int QT = FT>
 __device__ __forceinline__ int first_query_tile(int causal, int t0, int k0) {
   return causal ? max(k0 - t0, 0) / QT : 0;
 }
@@ -675,152 +695,461 @@ flash_bwd_dkv_wg(const __grid_constant__ CUtensorMap qmap,
 
 // ------------------------------------------------ fp32, CUDA cores
 
+// A block's 128 threads as 16 rows of 8 (ty, tx). Over a 64 x 64 tile of
+// scores a thread owns the 4 x 8 patch of rows ty + 16 r and columns
+// tx + 8 c; over a 64 x HD output tile the 4 x HD/8 patch of the same
+// rows and columns tx * 4 + 32 g + (0..3), g < HD/32. Tiles lie in shared
+// memory row-major, FT rows: rows of q, k, v or do LD floats apart, rows
+// of scores (K6a's dS, K6b's P^T and dS^T) SLD apart. With these strides
+// the float4 loads of a warp (4 rows ty, or 8 rows tx + 8 c, or 8
+// neighbouring chunks of one row) and its scattered stores of scores each
+// touch every bank at most once. Every tile has room for FT rows of SLD
+// (K6a writes dS over a V tile).
 template <int HD>
-__global__ void __launch_bounds__(BQ)
-bwd_dq_fp32(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, const float* __restrict__ o,
-            const float* __restrict__ dout, const int* __restrict__ kvl,
-            const float* __restrict__ lse, float* __restrict__ delta,
-            float* __restrict__ dq, Dims d, int causal, int t0,
-            float scale) {
-  constexpr int LDD = HD + 1;     // one thread reads each do row
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* Ks = reinterpret_cast<float*>(smem);   // [BK][HD]
-  float* Vs = Ks + BK * HD;                     // [BK][HD]
-  float* Ds = Vs + BK * HD;                     // [BQ][LDD]
+struct F32 {
+  static_assert(HD == 32 || HD == 64, "head widths");
+  static constexpr int LD = HD + 4, SLD = FT + 8;
+  static constexpr int TILE = FT * SLD;         // floats a tile
+  static constexpr int CW = HD / 8;             // output columns a thread
+  // K6a: Q | dO | [2] (K | V) tiles, then lse log2(e) and delta of the
+  // tile's rows; K6b: K | V | Q | dO | P^T | dS^T tiles, then lse and
+  // delta of the query tile's rows
+  static constexpr int DQ_BYTES = (6 * TILE + 2 * FT) * 4;
+  static constexpr int DKV_BYTES = (6 * TILE + 2 * FT) * 4;
+};
 
-  const int tid = threadIdx.x;
-  const int nh = blockIdx.y, n = nh / d.H, h = nh % d.H;
-  const int q0 = blockIdx.x * BQ, row = q0 + tid;
-  const int T = d.T, S = d.S;
-  const float* kb = k + (size_t)n * d.k_sn + (size_t)h * d.k_sh;
-  const float* vb = v + (size_t)n * d.v_sn + (size_t)h * d.v_sh;
-  const float* db = dout + (size_t)n * d.do_sn + (size_t)h * d.do_sh;
-  const int kvlen = min(kvl[n], S);
-
-  load_tile_f32<HD, LDD>(Ds, db, q0, T, d.do_st);
-  float qr[HD], acc[HD];
-  float lse_r = 0.f, dl = 0.f;
-  if (row < T) {
-    const float* qrow = q + (size_t)n * d.q_sn + (size_t)h * d.q_sh +
-                        (size_t)row * d.q_st;
-    const float* orow = o + (size_t)n * d.o_sn + (size_t)h * d.o_sh +
-                        (size_t)row * d.o_st;
-    const float* drow = db + (size_t)row * d.do_st;
-#pragma unroll
-    for (int e = 0; e < HD; ++e) {
-      qr[e] = qrow[e];
-      dl += drow[e] * orow[e];
-    }
-    lse_r = lse[(size_t)nh * T + row];
-    delta[(size_t)nh * T + row] = dl;
-  } else {
-#pragma unroll
-    for (int e = 0; e < HD; ++e) qr[e] = 0.f;
+// rows [r0, r0 + FT) of a (rows, HD) fp32 matrix with row stride st into
+// a tile by cp.async; rows past ``rows`` are zeros
+template <int HD>
+__device__ __forceinline__ void issue_tile(float* dst, const float* src,
+                                           int r0, int rows, int st) {
+  constexpr int CH = HD / 4;                     // 16-byte chunks a row
+  for (int i = threadIdx.x; i < FT * CH; i += FTHREADS) {
+    const int r = i / CH, c = (i % CH) * 4;
+    const bool ok = r0 + r < rows;
+    hl::cp_async16_zfill(dst + r * F32<HD>::LD + c,
+                         src + (size_t)(ok ? r0 + r : 0) * st + c, ok);
   }
-#pragma unroll
-  for (int e = 0; e < HD; ++e) acc[e] = 0.f;
-
-  const int nk = (key_end(kvlen, causal, t0, q0) + BK - 1) / BK;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * BK;
-    load_tile_f32<HD, HD>(Ks, kb, k0, S, d.k_st);
-    load_tile_f32<HD, HD>(Vs, vb, k0, S, d.v_st);
-    __syncthreads();
-    for (int j = 0; j < BK; ++j) {
-      const int c = k0 + j;
-      if (row >= T || c >= kvlen || (causal && c > t0 + row)) continue;
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int e = 0; e < HD; ++e) {
-        s = fmaf(qr[e], Ks[j * HD + e], s);
-        dp = fmaf(Ds[tid * LDD + e], Vs[j * HD + e], dp);
-      }
-      const float ds = expf(s * scale - lse_r) * (dp - dl);
-#pragma unroll
-      for (int e = 0; e < HD; ++e) acc[e] = fmaf(ds, Ks[j * HD + e], acc[e]);
-    }
-    __syncthreads();
-  }
-  if (row >= T) return;
-  float* out = dq + (size_t)n * d.dq_sn + (size_t)h * d.dq_sh +
-               (size_t)row * d.dq_st;
-#pragma unroll
-  for (int e = 0; e < HD; ++e) out[e] = acc[e] * scale;
 }
 
+// one float by cp.async; zero where !valid
+__device__ __forceinline__ void cp_async4_zfill(float* smem, const float* g,
+                                                bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(hl::smem_addr(smem)), "l"(g), "r"(valid ? 4 : 0));
+}
+
+// component u of a float4
+__device__ __forceinline__ float comp(const float4& v, int u) {
+  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
+}
+
+// S = A B^T and S2 = A2 B2^T over rows of HD of four tiles: acc[r][c] +=
+// A[ty + 16 r] . B[tx + 8 c], acc2 likewise, each sum in e's order. The
+// two products share a loop so that a step has 64 independent FFMA
+// chains (a chain's next FFMA waits for its last; the others issue
+// meanwhile), the loads of the next step in flight behind them
 template <int HD>
-__global__ void __launch_bounds__(BK)
-bwd_dkv_fp32(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, const float* __restrict__ dout,
-             const int* __restrict__ kvl, const float* __restrict__ lse,
-             const float* __restrict__ delta, float* __restrict__ dk,
-             float* __restrict__ dv, Dims d, int causal, int t0,
-             float scale) {
-  constexpr int LDK = HD + 1;     // one thread reads each k and v row
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);   // [BQ][HD]
-  float* Ds = Qs + BQ * HD;                     // [BQ][HD] do
-  float* Ks = Ds + BQ * HD;                     // [BK][LDK]
-  float* Vs = Ks + BK * LDK;                    // [BK][LDK]
-  __shared__ float lse_s[BQ], delta_s[BQ];
-
-  const int tid = threadIdx.x;
-  const int nh = blockIdx.y, n = nh / d.H, h = nh % d.H;
-  const int k0 = blockIdx.x * BK, c = k0 + tid;
-  const int T = d.T, S = d.S;
-  const float* qb = q + (size_t)n * d.q_sn + (size_t)h * d.q_sh;
-  const float* kb = k + (size_t)n * d.k_sn + (size_t)h * d.k_sh;
-  const float* vb = v + (size_t)n * d.v_sn + (size_t)h * d.v_sh;
-  const float* db = dout + (size_t)n * d.do_sn + (size_t)h * d.do_sh;
-  const int kvlen = min(kvl[n], S);
-
-  float dka[HD], dva[HD];
+__device__ __forceinline__ void rows_dot2(float (&acc)[4][8],
+                                          float (&acc2)[4][8],
+                                          const float* A, const float* B,
+                                          const float* A2, const float* B2,
+                                          int ty, int tx) {
+  constexpr int LD = F32<HD>::LD;
+#pragma unroll 2
+  for (int e = 0; e < HD; e += 4) {
+    float4 a[4], b[8], a2[4], b2[8];
 #pragma unroll
-  for (int e = 0; e < HD; ++e) dka[e] = dva[e] = 0.f;
-
-  if (k0 < kvlen) {
-    load_tile_f32<HD, LDK>(Ks, kb, k0, S, d.k_st);
-    load_tile_f32<HD, LDK>(Vs, vb, k0, S, d.v_st);
-    const int nq = (T + BQ - 1) / BQ;
-    for (int qt = first_query_tile(causal, t0, k0); qt < nq; ++qt) {
-      const int q0 = qt * BQ;
-      __syncthreads();               // the last tile's reads are done
-      load_tile_f32<HD, HD>(Qs, qb, q0, T, d.q_st);
-      load_tile_f32<HD, HD>(Ds, db, q0, T, d.do_st);
-      const bool in = q0 + tid < T;
-      lse_s[tid] = in ? lse[(size_t)nh * T + q0 + tid] : 0.f;
-      delta_s[tid] = in ? delta[(size_t)nh * T + q0 + tid] : 0.f;
-      __syncthreads();
-      for (int i = 0; i < BQ; ++i) {
-        const int row = q0 + i;
-        if (c >= kvlen || row >= T || (causal && c > t0 + row)) continue;
-        float s = 0.f, dp = 0.f;
+    for (int r = 0; r < 4; ++r) {
+      a[r] = *reinterpret_cast<const float4*>(A + (ty + 16 * r) * LD + e);
+      a2[r] = *reinterpret_cast<const float4*>(A2 + (ty + 16 * r) * LD + e);
+    }
 #pragma unroll
-        for (int e = 0; e < HD; ++e) {
-          s = fmaf(Ks[tid * LDK + e], Qs[i * HD + e], s);
-          dp = fmaf(Vs[tid * LDK + e], Ds[i * HD + e], dp);
+    for (int c = 0; c < 8; ++c) {
+      b[c] = *reinterpret_cast<const float4*>(B + (tx + 8 * c) * LD + e);
+      b2[c] = *reinterpret_cast<const float4*>(B2 + (tx + 8 * c) * LD + e);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          acc[r][c] = fmaf(comp(a[r], u), comp(b[c], u), acc[r][c]);
+          acc2[r][c] = fmaf(comp(a2[r], u), comp(b2[c], u), acc2[r][c]);
         }
-        const float p = expf(s * scale - lse_s[i]);
-        const float ds = p * (dp - delta_s[i]);
+  }
+}
+
+// acc[r][4 g + u] += sum_j W[ty + 16 r][j] X[j][tx 4 + 32 g + u] over the
+// FT rows j of X, in j's order; W a tile of scores
+template <int HD>
+__device__ __forceinline__ void rows_times(float (&acc)[4][F32<HD>::CW],
+                                           const float* W, const float* X,
+                                           int ty, int tx) {
+  constexpr int LD = F32<HD>::LD, SLD = F32<HD>::SLD, NG = HD / 32;
+#pragma unroll 4
+  for (int j = 0; j < FT; j += 4) {
+    float4 w[4];
 #pragma unroll
-        for (int e = 0; e < HD; ++e) {
-          dva[e] = fmaf(p, Ds[i * HD + e], dva[e]);
-          dka[e] = fmaf(ds, Qs[i * HD + e], dka[e]);
+    for (int r = 0; r < 4; ++r)
+      w[r] = *reinterpret_cast<const float4*>(W + (ty + 16 * r) * SLD + j);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      float4 x[NG];
+#pragma unroll
+      for (int g = 0; g < NG; ++g)
+        x[g] = *reinterpret_cast<const float4*>(X + (j + jj) * LD + tx * 4 +
+                                                32 * g);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float wr = comp(w[r], jj);
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+          acc[r][4 * g] = fmaf(wr, x[g].x, acc[r][4 * g]);
+          acc[r][4 * g + 1] = fmaf(wr, x[g].y, acc[r][4 * g + 1]);
+          acc[r][4 * g + 2] = fmaf(wr, x[g].z, acc[r][4 * g + 2]);
+          acc[r][4 * g + 3] = fmaf(wr, x[g].w, acc[r][4 * g + 3]);
         }
       }
     }
   }
-  if (c >= S) return;
-  float* ko = dk + (size_t)n * d.dk_sn + (size_t)h * d.dk_sh +
-              (size_t)c * d.dk_st;
-  float* vo = dv + (size_t)n * d.dv_sn + (size_t)h * d.dv_sh +
-              (size_t)c * d.dv_st;
+}
+
+// a thread's 4 x CW output patch: row r's floats 4 g .. 4 g + 3 at
+// ``row(r) + 32 g``, times ``mul`` (to), or from L2 (from)
+template <int CW, typename F>
+__device__ __forceinline__ void patch_to(F row, const float (&x)[4][CW],
+                                         float mul) {
 #pragma unroll
-  for (int e = 0; e < HD; ++e) {
-    ko[e] = dka[e] * scale;
-    vo[e] = dva[e];
+  for (int r = 0; r < 4; ++r) {
+    float* p = row(r);
+    if (p == nullptr) continue;
+#pragma unroll
+    for (int g = 0; g < CW / 4; ++g)
+      *reinterpret_cast<float4*>(p + 32 * g) =
+          make_float4(x[r][4 * g] * mul, x[r][4 * g + 1] * mul,
+                      x[r][4 * g + 2] * mul, x[r][4 * g + 3] * mul);
   }
+}
+
+template <int CW>
+__device__ __forceinline__ void patch_add(float (&x)[4][CW], const float* p,
+                                          int ld, bool first) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int g = 0; g < CW / 4; ++g) {
+      const float4 v =
+          __ldcg(reinterpret_cast<const float4*>(p + 16 * r * ld + 32 * g));
+      const float y[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        x[r][4 * g + u] = first ? y[u] : x[r][4 * g + u] + y[u];
+    }
+}
+
+// the [s n / P, (s + 1) n / P) share of n reduction tiles that split s of
+// P takes (flash_cuda.f32_split_range)
+__device__ __forceinline__ void split_range(int n, int P, int s, int* lo,
+                                            int* hi) {
+  *lo = (int)((long long)n * s / P);
+  *hi = (int)((long long)n * (s + 1) / P);
+}
+
+// The splits' merge. Every split of an output tile writes its sums
+// ``acc`` (G outputs: dq, or dk then dv) to its slot of ``part``,
+// [tile][split][G][FT][HD]; the last split to finish (a per-tile counter,
+// left 0 for the next call) adds the slots in split order into ``acc``.
+// -> whether this block is that last one. With one split, acc is the sum
+// already.
+template <int HD, int G>
+__device__ __forceinline__ bool merge_splits(float (&acc)[G][4][F32<HD>::CW],
+                                             float* part, int* ctr,
+                                             long long tile, int P, int s,
+                                             int ty, int tx) {
+  constexpr int CW = F32<HD>::CW;
+  __shared__ int last;
+  if (P == 1) return true;
+  auto slot = [&](int sp, int g) {
+    return part + ((tile * P + sp) * G + g) * FT * HD + ty * HD + tx * 4;
+  };
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+    patch_to<CW>([&](int r) { return slot(s, g) + 16 * r * HD; }, acc[g],
+                 1.f);
+  __threadfence();                          // the partial, before the count
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ctr + tile, 1) == P - 1;
+  __syncthreads();
+  if (!last) return false;
+  __threadfence();                          // every split's partial is seen
+  for (int sp = 0; sp < P; ++sp)
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      patch_add<CW>(acc[g], slot(sp, g), HD, sp == 0);
+  if (threadIdx.x == 0) ctr[tile] = 0;
+  return true;
+}
+
+// K6a in fp32. Block b: split s = b % P of the (n*h, 64-row query tile)
+// b / P, the query tiles latest first (the causal ones with most keys),
+// the heads within; its key tiles stream through a 2-stage ring. Writes
+// delta (split 0) and dq, through ``part`` and ``ctr`` when P > 1.
+template <int HD>
+__global__ void __launch_bounds__(FTHREADS, 2)
+bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, const float* __restrict__ o,
+           const float* __restrict__ dout, const int* __restrict__ kvl,
+           const float* __restrict__ lse, float* __restrict__ delta,
+           float* __restrict__ dq, float* part, int* ctr, Dims d, int causal,
+           int t0, float scale2, float scale, int P) {
+  using L = F32<HD>;
+  constexpr int CW = L::CW, TPR = FTHREADS / FT;   // threads a row (delta)
+  extern __shared__ __align__(16) float fsm[];
+  float* Qs = fsm;
+  float* Ds = fsm + L::TILE;
+  float* ring = fsm + 2 * L::TILE;              // [2] (K | V)
+  float* lse2_s = fsm + 6 * L::TILE;
+  float* dl_s = lse2_s + FT;
+
+  const int tid = threadIdx.x, tx = tid % 8, ty = tid / 8;
+  const int T = d.T, S = d.S, NH = d.N * d.H, QT = (T + FT - 1) / FT;
+  const int s = blockIdx.x % P, w = blockIdx.x / P;
+  const int nh = w % NH, qt = QT - 1 - w / NH;
+  const int n = nh / d.H, h = nh % d.H, q0 = qt * FT;
+  const long long tile = (long long)nh * QT + qt;
+  const float* kb = k + (size_t)n * d.k_sn + (size_t)h * d.k_sh;
+  const float* vb = v + (size_t)n * d.v_sn + (size_t)h * d.v_sh;
+  const float* db = dout + (size_t)n * d.do_sn + (size_t)h * d.do_sh;
+  const float* ob = o + (size_t)n * d.o_sn + (size_t)h * d.o_sh;
+  const int kvlen = min(kvl[n], S);
+  int k_lo, k_hi;
+  split_range((key_end(kvlen, causal, t0, q0) + FT - 1) / FT, P, s, &k_lo,
+              &k_hi);
+
+  issue_tile<HD>(Qs, q + (size_t)n * d.q_sn + (size_t)h * d.q_sh, q0, T,
+                 d.q_st);
+  issue_tile<HD>(Ds, db, q0, T, d.do_st);
+  if (k_lo < k_hi) {
+    issue_tile<HD>(ring, kb, k_lo * FT, S, d.k_st);
+    issue_tile<HD>(ring + L::TILE, vb, k_lo * FT, S, d.v_st);
+  }
+  hl::cp_async_commit();
+  {
+    // delta = rowsum(dO O) from device memory, TPR threads a row (each a
+    // share of the row, then summed by shuffles: a fixed order), while
+    // the tiles land
+    const int row = q0 + tid / TPR, part_r = tid % TPR;
+    float acc = 0.f;
+    if (row < T) {
+      const float* dr = db + (size_t)row * d.do_st + part_r * (HD / TPR);
+      const float* orow = ob + (size_t)row * d.o_st + part_r * (HD / TPR);
+#pragma unroll
+      for (int e = 0; e < HD / TPR; e += 4) {
+        const float4 a = *reinterpret_cast<const float4*>(dr + e);
+        const float4 b = *reinterpret_cast<const float4*>(orow + e);
+        acc = fmaf(a.x, b.x, acc);
+        acc = fmaf(a.y, b.y, acc);
+        acc = fmaf(a.z, b.z, acc);
+        acc = fmaf(a.w, b.w, acc);
+      }
+    }
+#pragma unroll
+    for (int m = 1; m < TPR; m *= 2)
+      acc += __shfl_xor_sync(0xffffffffu, acc, m);
+    if (part_r == 0) {
+      dl_s[tid / TPR] = acc;
+      if (row < T && s == 0) delta[(size_t)nh * T + row] = acc;
+    }
+    if (tid < FT)
+      lse2_s[tid] = q0 + tid < T ? lse[(size_t)nh * T + q0 + tid] * LOG2E
+                                 : 0.f;
+  }
+
+  // the last key each of this thread's rows attends, and the least of
+  // that over the tile's 64 rows (a key tile past it needs the mask)
+  int cmax[4];
+  const int cmax_tile = causal ? min(kvlen - 1, t0 + q0) : kvlen - 1;
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    cmax[r] = causal ? min(kvlen - 1, t0 + q0 + ty + 16 * r) : kvlen - 1;
+
+  float acc[1][4][CW];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int u = 0; u < CW; ++u) acc[0][r][u] = 0.f;
+  float l2[4], dl[4];
+
+  for (int kt = k_lo; kt < k_hi; ++kt) {
+    const int i = kt - k_lo, k0 = kt * FT;
+    float* Ks = ring + (i & 1) * 2 * L::TILE;
+    float* Vs = Ks + L::TILE;
+    hl::cp_async_wait<0>();
+    __syncthreads();              // tile i landed; tile i - 1's reads done
+    if (i == 0)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        l2[r] = lse2_s[ty + 16 * r];
+        dl[r] = dl_s[ty + 16 * r];
+      }
+    if (kt + 1 < k_hi) {          // the next k and v tiles, during this one
+      float* nk = ring + ((i + 1) & 1) * 2 * L::TILE;
+      issue_tile<HD>(nk, kb, k0 + FT, S, d.k_st);
+      issue_tile<HD>(nk + L::TILE, vb, k0 + FT, S, d.v_st);
+      hl::cp_async_commit();
+    }
+    float sc[4][8] = {}, dp[4][8] = {};
+    rows_dot2<HD>(sc, dp, Qs, Ks, Ds, Vs, ty, tx);      // Q K^T, dO V^T
+    // p = 2^(s log2(e)/sqrt(D) - lse log2(e)), 0 past each row's last key
+    // on a tile that crosses the tile's first row's; ds = p (dp - delta)
+    const bool edge = k0 + FT - 1 > cmax_tile;
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        float p = hl::ex2(fmaf(sc[r][c], scale2, -l2[r]));
+        if (edge && k0 + tx + 8 * c > cmax[r]) p = 0.f;
+        sc[r][c] = p * (dp[r][c] - dl[r]);
+      }
+    __syncthreads();              // every read of V done: dS takes its place
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        Vs[(ty + 16 * r) * L::SLD + tx + 8 * c] = sc[r][c];
+    __syncthreads();
+    rows_times<HD>(acc[0], Vs, Ks, ty, tx);             // dQ += dS K
+  }
+  hl::cp_async_wait<0>();         // nothing in flight at exit (no keys)
+
+  if (!merge_splits<HD, 1>(acc, part, ctr, tile, P, s, ty, tx)) return;
+  float* out = dq + (size_t)n * d.dq_sn + (size_t)h * d.dq_sh + tx * 4;
+  patch_to<CW>([&](int r) {
+    const int row = q0 + ty + 16 * r;
+    return row < T ? out + (size_t)row * d.dq_st : nullptr;
+  }, acc[0], scale);
+}
+
+// K6b in fp32. Block b: split s = b % P of the (n*h, 64-key tile) b / P,
+// the key tiles earliest first (the causal ones with most queries), the
+// heads within; its query tiles load one at a time with their lse and
+// K6a's delta (two blocks share an SM, each loading while the other
+// computes). Writes dk and dv, through ``part`` and ``ctr`` when P > 1.
+template <int HD>
+__global__ void __launch_bounds__(FTHREADS, 2)
+bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, const float* __restrict__ dout,
+            const int* __restrict__ kvl, const float* __restrict__ lse,
+            const float* __restrict__ delta, float* __restrict__ dk,
+            float* __restrict__ dv, float* part, int* ctr, Dims d,
+            int causal, int t0, float scale2, float scale, int P) {
+  using L = F32<HD>;
+  constexpr int CW = L::CW;
+  extern __shared__ __align__(16) float fsm[];
+  float* Ks = fsm;
+  float* Vs = fsm + L::TILE;
+  float* Qs = fsm + 2 * L::TILE;
+  float* Ds = fsm + 3 * L::TILE;
+  float* Pt = fsm + 4 * L::TILE;
+  float* dSt = fsm + 5 * L::TILE;
+  float* lt = fsm + 6 * L::TILE;                // lse | delta
+
+  const int tid = threadIdx.x, tx = tid % 8, ty = tid / 8;
+  const int T = d.T, S = d.S, NH = d.N * d.H, KT = (S + FT - 1) / FT;
+  const int s = blockIdx.x % P, w = blockIdx.x / P;
+  const int nh = w % NH, kt = w / NH;
+  const int n = nh / d.H, h = nh % d.H, k0 = kt * FT;
+  const long long tile = (long long)nh * KT + kt;
+  const float* qb = q + (size_t)n * d.q_sn + (size_t)h * d.q_sh;
+  const float* db = dout + (size_t)n * d.do_sn + (size_t)h * d.do_sh;
+  const float* lb = lse + (size_t)nh * T;
+  const float* deb = delta + (size_t)nh * T;
+  const int kvlen = min(kvl[n], S);
+  // the query tiles that can see this key tile: from the first (the TPU
+  // kernel's q_index clamp) to the last; none at or past kv_lengths[n]
+  const int qt0 = first_query_tile(causal, t0, k0);
+  int q_lo, q_hi;
+  split_range(k0 < kvlen ? max((T + FT - 1) / FT - qt0, 0) : 0, P, s, &q_lo,
+              &q_hi);
+  q_lo += qt0, q_hi += qt0;
+
+  auto issue = [&](int qt) {
+    issue_tile<HD>(Qs, qb, qt * FT, T, d.q_st);
+    issue_tile<HD>(Ds, db, qt * FT, T, d.do_st);
+    for (int i = tid; i < 2 * FT; i += FTHREADS) {
+      const int row = qt * FT + i % FT;
+      cp_async4_zfill(lt + i, (i < FT ? lb : deb) + (row < T ? row : 0),
+                      row < T);
+    }
+  };
+  if (q_lo < q_hi) {
+    issue_tile<HD>(Ks, k + (size_t)n * d.k_sn + (size_t)h * d.k_sh, k0, S,
+                   d.k_st);
+    issue_tile<HD>(Vs, v + (size_t)n * d.v_sn + (size_t)h * d.v_sh, k0, S,
+                   d.v_st);
+    issue(q_lo);
+  }
+  hl::cp_async_commit();
+
+  // the first query each of this thread's key rows attends (before it:
+  // masked), and over the tile's 64 rows the most of that: a query tile
+  // that starts before it needs the mask
+  int qmin[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    qmin[r] = first_query(k0 + ty + 16 * r, kvlen, causal, t0);
+  const int mask_to = first_query(k0 + FT - 1, kvlen, causal, t0);
+
+  float acc[2][4][CW];                          // dk, dv
+#pragma unroll
+  for (int g = 0; g < 2; ++g)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int u = 0; u < CW; ++u) acc[g][r][u] = 0.f;
+
+  for (int qt = q_lo; qt < q_hi; ++qt) {
+    const int q0 = qt * FT;
+    hl::cp_async_wait<0>();
+    __syncthreads();              // the tile landed
+    float sc[4][8] = {}, dp[4][8] = {};
+    rows_dot2<HD>(sc, dp, Ks, Qs, Vs, Ds, ty, tx);      // K Q^T, V dO^T
+    const bool edge = q0 < mask_to;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int col = tx + 8 * c;
+      const float l2 = lt[col] * LOG2E, de = lt[FT + col];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        float p = hl::ex2(fmaf(sc[r][c], scale2, -l2));
+        if (edge && q0 + col < qmin[r]) p = 0.f;
+        Pt[(ty + 16 * r) * L::SLD + col] = p;
+        dSt[(ty + 16 * r) * L::SLD + col] = p * (dp[r][c] - de);
+      }
+    }
+    __syncthreads();
+    rows_times<HD>(acc[1], Pt, Ds, ty, tx);             // dV += P^T dO
+    rows_times<HD>(acc[0], dSt, Qs, ty, tx);            // dK += dS^T Q
+    if (qt + 1 < q_hi) {
+      __syncthreads();            // every read of this tile done
+      issue(qt + 1);
+      hl::cp_async_commit();
+    }
+  }
+
+  if (!merge_splits<HD, 2>(acc, part, ctr, tile, P, s, ty, tx)) return;
+  float* ko = dk + (size_t)n * d.dk_sn + (size_t)h * d.dk_sh + tx * 4;
+  float* vo = dv + (size_t)n * d.dv_sn + (size_t)h * d.dv_sh + tx * 4;
+  patch_to<CW>([&](int r) {
+    const int row = k0 + ty + 16 * r;
+    return row < S ? ko + (size_t)row * d.dk_st : nullptr;
+  }, acc[0], scale);
+  patch_to<CW>([&](int r) {
+    const int row = k0 + ty + 16 * r;
+    return row < S ? vo + (size_t)row * d.dv_st : nullptr;
+  }, acc[1], 1.f);
 }
 
 template <typename Kern, typename... Args>
@@ -851,19 +1180,59 @@ cudaError_t persistent_grid(long long items, int* grid) {
   return err;
 }
 
+// fp32: (N H ceil(T / FT)) query tiles (K6a) or (N H ceil(S / FT)) key
+// tiles (K6b), each in P splits, one block a split
+template <int HD>
+cudaError_t run_dq_f32(const Dims& d, const void* q, const void* k,
+                       const void* v, const void* o, const void* dout,
+                       const int* kvl, const float* lse, float* delta,
+                       void* dq, float* part, int* ctr, int causal, int t0,
+                       int P, cudaStream_t s) {
+  static unsigned done = 0;
+  constexpr int smem = F32<HD>::DQ_BYTES;
+  cudaError_t err = hl::allow_smem(
+      done, reinterpret_cast<const void*>(bwd_dq_f32<HD>), smem);
+  if (err != cudaSuccess) return err;
+  const float scale = 1.f / sqrtf((float)HD);
+  const long long blocks =
+      (long long)d.N * d.H * ((d.T + FT - 1) / FT) * P;
+  bwd_dq_f32<HD><<<(unsigned)blocks, FTHREADS, smem, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(o),
+      static_cast<const float*>(dout), kvl, lse, delta,
+      static_cast<float*>(dq), part, ctr, d, causal, t0, LOG2E * scale,
+      scale, P);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t run_dkv_f32(const Dims& d, const void* q, const void* k,
+                        const void* v, const void* dout, const int* kvl,
+                        const float* lse, const float* delta, void* dk,
+                        void* dv, float* part, int* ctr, int causal, int t0,
+                        int P, cudaStream_t s) {
+  static unsigned done = 0;
+  constexpr int smem = F32<HD>::DKV_BYTES;
+  cudaError_t err = hl::allow_smem(
+      done, reinterpret_cast<const void*>(bwd_dkv_f32<HD>), smem);
+  if (err != cudaSuccess) return err;
+  const float scale = 1.f / sqrtf((float)HD);
+  const long long blocks =
+      (long long)d.N * d.H * ((d.S + FT - 1) / FT) * P;
+  bwd_dkv_f32<HD><<<(unsigned)blocks, FTHREADS, smem, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), kvl,
+      lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), part,
+      ctr, d, causal, t0, LOG2E * scale, scale, P);
+  return cudaGetLastError();
+}
+
 template <int HD>
 cudaError_t run_dq(const Dims& d, const void* q, const void* k,
                    const void* v, const void* o, const void* dout,
                    const int* kvl, const float* lse, float* delta, void* dq,
-                   int causal, int t0, int bf16_, cudaStream_t s) {
+                   int causal, int t0, cudaStream_t s) {
   const float scale = 1.f / sqrtf((float)HD);
-  if (!bf16_)
-    return launch(bwd_dq_fp32<HD>, dim3((d.T + BQ - 1) / BQ, d.N * d.H), BQ,
-                  (size_t)(2 * BK * HD + BQ * (HD + 1)) * sizeof(float), s,
-                  static_cast<const float*>(q), static_cast<const float*>(k),
-                  static_cast<const float*>(v), static_cast<const float*>(o),
-                  static_cast<const float*>(dout), kvl, lse, delta,
-                  static_cast<float*>(dq), d, causal, t0, scale);
   CUtensorMap qm, km, vm, om, dom;
   if (!hl::tile_map_bf16(&qm, q, HD, d.T, d.H, d.N, d.q_st, d.q_sh, d.q_sn,
                          BM) ||
@@ -889,16 +1258,8 @@ template <int HD>
 cudaError_t run_dkv(const Dims& d, const void* q, const void* k,
                     const void* v, const void* dout, const int* kvl,
                     const float* lse, const float* delta, void* dk, void* dv,
-                    int causal, int t0, int bf16_, cudaStream_t s) {
+                    int causal, int t0, cudaStream_t s) {
   const float scale = 1.f / sqrtf((float)HD);
-  if (!bf16_)
-    return launch(bwd_dkv_fp32<HD>, dim3((d.S + BK - 1) / BK, d.N * d.H), BK,
-                  (size_t)(2 * BQ * HD + 2 * BK * (HD + 1)) * sizeof(float),
-                  s, static_cast<const float*>(q),
-                  static_cast<const float*>(k), static_cast<const float*>(v),
-                  static_cast<const float*>(dout), kvl, lse, delta,
-                  static_cast<float*>(dk), static_cast<float*>(dv), d, causal,
-                  t0, scale);
   CUtensorMap qm, km, vm, dom, ldm;
   if (!hl::tile_map_bf16(&qm, q, HD, d.T, d.H, d.N, d.q_st, d.q_sh, d.q_sn,
                          BT) ||
@@ -930,37 +1291,53 @@ cudaError_t run_dkv(const Dims& d, const void* q, const void* k,
 // (N*H, T) fp32 from the forward. delta: the scratch that K6a writes and
 // K6b reads, so K6a runs first on the stream; in bf16 (N*H, 2, Tp) fp32,
 // lse log2(e) then delta, Tp = T rounded up to 4; in fp32 (N*H, T) delta.
-// D is 32 or 64. Each returns its launch's cudaError_t.
+// fp32 only (bf16 ignores them): ``splits`` (flash_cuda.bwd_f32_plan),
+// and where it is over 1 ``part``, [tiles][splits][FT][D] fp32 (K6b: [2]
+// within, dk then dv), and ``ctr``, an int32 counter a tile, 0 before the
+// launch and after it. D is 32 or 64. Each returns its launch's
+// cudaError_t.
 extern "C" int hl_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* o, const void* dout,
                                const int* kv_lengths, const float* lse,
-                               float* delta, void* dq, const int* dims,
-                               int causal, int t0, int bf16_, void* stream) {
+                               float* delta, void* dq, float* part, int* ctr,
+                               const int* dims, int causal, int t0, int bf16_,
+                               int splits, void* stream) {
   const Dims d = read_dims(dims);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
+  if (splits < 1) return static_cast<int>(err);
   if (d.D == 64)
-    err = run_dq<64>(d, q, k, v, o, dout, kv_lengths, lse, delta, dq, causal,
-                     t0, bf16_, s);
+    err = bf16_ ? run_dq<64>(d, q, k, v, o, dout, kv_lengths, lse, delta,
+                             dq, causal, t0, s)
+                : run_dq_f32<64>(d, q, k, v, o, dout, kv_lengths, lse, delta,
+                                 dq, part, ctr, causal, t0, splits, s);
   else if (d.D == 32)
-    err = run_dq<32>(d, q, k, v, o, dout, kv_lengths, lse, delta, dq, causal,
-                     t0, bf16_, s);
+    err = bf16_ ? run_dq<32>(d, q, k, v, o, dout, kv_lengths, lse, delta,
+                             dq, causal, t0, s)
+                : run_dq_f32<32>(d, q, k, v, o, dout, kv_lengths, lse, delta,
+                                 dq, part, ctr, causal, t0, splits, s);
   return static_cast<int>(err);
 }
 
 extern "C" int hl_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 const void* dout, const int* kv_lengths,
                                 const float* lse, const float* delta,
-                                void* dk, void* dv, const int* dims,
-                                int causal, int t0, int bf16_, void* stream) {
+                                void* dk, void* dv, float* part, int* ctr,
+                                const int* dims, int causal, int t0,
+                                int bf16_, int splits, void* stream) {
   const Dims d = read_dims(dims);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
+  if (splits < 1) return static_cast<int>(err);
   if (d.D == 64)
-    err = run_dkv<64>(d, q, k, v, dout, kv_lengths, lse, delta, dk, dv,
-                      causal, t0, bf16_, s);
+    err = bf16_ ? run_dkv<64>(d, q, k, v, dout, kv_lengths, lse, delta, dk,
+                              dv, causal, t0, s)
+                : run_dkv_f32<64>(d, q, k, v, dout, kv_lengths, lse, delta,
+                                  dk, dv, part, ctr, causal, t0, splits, s);
   else if (d.D == 32)
-    err = run_dkv<32>(d, q, k, v, dout, kv_lengths, lse, delta, dk, dv,
-                      causal, t0, bf16_, s);
+    err = bf16_ ? run_dkv<32>(d, q, k, v, dout, kv_lengths, lse, delta, dk,
+                              dv, causal, t0, s)
+                : run_dkv_f32<32>(d, q, k, v, dout, kv_lengths, lse, delta,
+                                  dk, dv, part, ctr, causal, t0, splits, s);
   return static_cast<int>(err);
 }

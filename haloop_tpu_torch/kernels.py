@@ -67,12 +67,12 @@ _SIGNATURES = {
     # q, k, v, kv_lengths, seg, o, lse, dims (host int[17]), causal, t0,
     # bf16, stream
     "hl_flash_fwd": [_P] * 8 + [_I] * 3 + [_P],
-    # q, k, v, o, do, kv_lengths, lse, scratch, dq, dims (host int[29]),
-    # causal, t0, bf16, stream
-    "hl_flash_bwd_dq": [_P] * 10 + [_I] * 3 + [_P],
-    # q, k, v, do, kv_lengths, lse, scratch, dk, dv, dims (host int[29]),
-    # causal, t0, bf16, stream
-    "hl_flash_bwd_dkv": [_P] * 10 + [_I] * 3 + [_P],
+    # q, k, v, o, do, kv_lengths, lse, scratch, dq, part, counters, dims
+    # (host int[29]), causal, t0, bf16, splits (fp32), stream
+    "hl_flash_bwd_dq": [_P] * 12 + [_I] * 4 + [_P],
+    # q, k, v, do, kv_lengths, lse, scratch, dk, dv, part, counters, dims
+    # (host int[29]), causal, t0, bf16, splits (fp32), stream
+    "hl_flash_bwd_dkv": [_P] * 12 + [_I] * 4 + [_P],
     # x, w, targets, nll, lse, partial, N, V, D, chunks, grid, bf16, stream
     "hl_fused_ce": [_P] * 6 + [_I] * 6 + [_P],
     # q, k_new, v_new, k_cache, v_cache, starts, y, B, S, E, H, length,

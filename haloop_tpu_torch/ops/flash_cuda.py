@@ -3,7 +3,10 @@
 (K5), or with per-token segment ids for packed rows (K7), and the
 backward of K5 (``csrc/flash_bwd.cu``): dq (K6a), then dk and dv (K6b).
 In bf16 each is a warp-specialized Hopper kernel (wgmma fed by TMA
-through an mbarrier ring), in fp32 a CUDA-core one.
+through an mbarrier ring), in fp32 a CUDA-core one (exact FFMA in
+register tiles; K6a and K6b split their reduction over blocks where the
+output tiles alone leave SMs idle, ``bwd_f32_plan``, and merge the splits
+in split order inside the launch).
 
 Mirrors ``haloop_tpu.ops.flash.flash_attention`` and
 ``flash_attention_packed``:
@@ -40,6 +43,8 @@ from haloop_tpu_torch import kernels
 from haloop_tpu_torch.ops import flash as _flash
 
 HEAD_DIMS = (32, 64)          # the head widths the kernel is built for
+F32_TILE = 64                 # fp32 K6a/K6b: query rows and keys a tile
+_counters = {}                # (device, stream) -> fp32 K6's split counters
 launches = 0                  # K5 calls
 lse_launches = 0              # K5 calls that also write the lse
 packed_launches = 0           # K7 calls
@@ -237,12 +242,79 @@ def _bwd_args(q, k, v, kv_lengths, causal, t0, o, lse, do):
         for t in (dq, dk, dv):
             t.zero_()
     dims = [N, H, T, S, D] + _strides(q, k, v, o, do, dq, dk, dv)
+    bf16 = q.dtype == torch.bfloat16
+    plan = None if bf16 else bwd_f32_plan(
+        N, H, T, S, D, causal, t0, kernels.multiprocessors(q.device))
+    part = ctr = None
+    if plan is not None and max(plan.dq_splits, plan.dkv_splits) > 1:
+        # one scratch for both: K6b runs after K6a's merges on the stream
+        part = torch.empty(max(plan.dq_part, plan.dkv_part),
+                           dtype=torch.float32, device=q.device)
+        ctr = _split_counters(q.device, kernels.stream_of(q),
+                              max(plan.dq_tiles, plan.dkv_tiles))
     return SimpleNamespace(
         q=q, k=k, v=v, o=o, do=do, kv_lengths=kv_lengths, lse=lse,
         scratch=_scratch(N, H, T, q), dq=dq, dk=dk, dv=dv,
         causal=int(causal), t0=int(t0),
-        dims=(ctypes.c_int * len(dims))(*dims),
-        bf16=int(q.dtype == torch.bfloat16), launch=N * H * T * S > 0)
+        dims=(ctypes.c_int * len(dims))(*dims), bf16=int(bf16), plan=plan,
+        part=part, ctr=ctr, launch=N * H * T * S > 0)
+
+
+def f32_split_range(n, splits, s):
+    """The reduction tiles [lo, hi) of an output tile's ``n`` live ones
+    that split ``s`` of ``splits`` takes in the fp32 K6a/K6b
+    (``split_range`` in csrc/flash_bwd.cu): an even share of the tiles
+    that tile visits, so that causal splits balance by live tiles."""
+    return n * s // splits, n * (s + 1) // splits
+
+
+def _splits(tiles, reach, sms):
+    """P for ``tiles`` output tiles whose reduction spans at most
+    ``reach`` tiles: 1 where the tiles fill the ``sms``; else the P whose
+    heaviest SM has the least to do, ceil(tiles P / sms) blocks of
+    ceil(reach / P) tiles each, the smallest P of those (fewer partials
+    to merge; an SM with one block runs it faster than two that share
+    it). At (1, 8, 384, 64) that is 2 (96 blocks): 2 read faster than 3
+    and 6 on an H100 (PERF.md, PR 22)."""
+    if tiles >= sms or reach <= 1:
+        return 1
+    return min(range(1, reach + 1),
+               key=lambda p: (-(-tiles * p // sms) * -(-reach // p), p))
+
+
+def bwd_f32_plan(N, H, T, S, D, causal, t0, sms):
+    """The grids of the fp32 K6a (query tiles of F32_TILE rows, the keys
+    split) and K6b (key tiles, the queries split) on a card of ``sms``
+    multiprocessors -> SimpleNamespace(dq_tiles, dq_splits, dq_blocks,
+    dq_part, and the same of dkv): tiles, splits, blocks (tiles x
+    splits), and the fp32 scratch the splits' sums take (0 with one
+    split). The key lengths are not read: a tile's reach is what its
+    shapes allow (K6a's latest query tile: S, or t0 + T causal; every
+    query tile for K6b's first key tile)."""
+    tile = F32_TILE
+    qt, kt = -(-T // tile), -(-S // tile)
+    reach_k = -(-max(min(S, t0 + qt * tile) if causal else S, 0) // tile)
+    out = {}
+    for name, tiles, reach, outs in (("dq", N * H * qt, reach_k, 1),
+                                     ("dkv", N * H * kt, qt, 2)):
+        p = _splits(tiles, reach, sms)
+        out.update({f"{name}_tiles": tiles, f"{name}_splits": p,
+                    f"{name}_blocks": tiles * p,
+                    f"{name}_part": tiles * p * outs * tile * D if p > 1
+                    else 0})
+    return SimpleNamespace(**out)
+
+
+def _split_counters(device, stream, n):
+    """fp32 K6's per-tile arrival counters on ``device``, kept between
+    calls: each launch leaves them 0, and calls run in the order of the
+    stream they share, so each stream has its own."""
+    key = device.index, stream
+    ctr = _counters.get(key)
+    if ctr is None or ctr.numel() < n:
+        ctr = _counters[key] = torch.zeros(n, dtype=torch.int32,
+                                           device=device)
+    return ctr
 
 
 def _scratch(N, H, T, q):
@@ -261,8 +333,9 @@ def _bwd_dq(b):
     err = kernels.library().hl_flash_bwd_dq(
         b.q.data_ptr(), b.k.data_ptr(), b.v.data_ptr(), b.o.data_ptr(),
         b.do.data_ptr(), b.kv_lengths.data_ptr(), b.lse.data_ptr(),
-        b.scratch.data_ptr(), b.dq.data_ptr(), b.dims, b.causal, b.t0,
-        b.bf16, kernels.stream_of(b.q))
+        b.scratch.data_ptr(), b.dq.data_ptr(), _ptr(b.part), _ptr(b.ctr),
+        b.dims, b.causal, b.t0, b.bf16, b.plan.dq_splits if b.plan else 1,
+        kernels.stream_of(b.q))
     kernels.check(err, "hl_flash_bwd_dq")
     bwd_dq_launches += 1
 
@@ -273,10 +346,15 @@ def _bwd_dkv(b):
     err = kernels.library().hl_flash_bwd_dkv(
         b.q.data_ptr(), b.k.data_ptr(), b.v.data_ptr(), b.do.data_ptr(),
         b.kv_lengths.data_ptr(), b.lse.data_ptr(), b.scratch.data_ptr(),
-        b.dk.data_ptr(), b.dv.data_ptr(), b.dims, b.causal, b.t0, b.bf16,
+        b.dk.data_ptr(), b.dv.data_ptr(), _ptr(b.part), _ptr(b.ctr), b.dims,
+        b.causal, b.t0, b.bf16, b.plan.dkv_splits if b.plan else 1,
         kernels.stream_of(b.q))
     kernels.check(err, "hl_flash_bwd_dkv")
     bwd_dkv_launches += 1
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
 
 
 def flash_packed_cuda(q, k, v, segment_ids, causal=True):

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""The bf16 flash attention kernels of the PyTorch port alone on one GPU:
-the forward (K5, K5 with its lse, and K7,
+"""The flash attention kernels of the PyTorch port alone on one GPU: the
+bf16 forward (K5, K5 with its lse, and K7,
 ``haloop_tpu_torch/csrc/flash_fwd.cu``) and the backward (K6a dq, K6b dk
-and dv, ``csrc/flash_bwd.cu``): their build, checks against the plain
-versions, and their times.
+and dv, ``csrc/flash_bwd.cu``) in bf16 and in fp32: their build, checks
+against the plain versions, and their times.
 
     python3 scripts/flash_fwd_probe.py                # checks, then times
     python3 scripts/flash_fwd_probe.py --backward     # the backward only
@@ -12,10 +12,18 @@ versions, and their times.
         # DIR), each in a process of its own, at the same shapes and inputs
     python3 scripts/flash_fwd_probe.py --tree DIR --times-only
         # one tree's times and rates as a JSON line (what --against runs)
+    python3 scripts/flash_fwd_probe.py --clocks
+        # fp32 K6a and K6b at hala's fp32 shape, each called for ~2 s
+        # while nvidia-smi samples the SM clock and the power draw
 
 With ``--backward`` the checks and times are K6a's and K6b's alone and
 the rates hala's alone; ``--kernels-only`` leaves the rates out (to
-compare design variants quickly).
+compare design variants quickly). The backward's checks and times cover
+both modes; in fp32 the checks also force other splits of the reduction
+than ``flash_cuda.bwd_f32_plan``'s (``forced_splits``), and the times
+at --grad-norms' shape with other splits forced (``F32_SPLITS``; a
+parent tree without the split has none, and --against prints only the
+lines both trees time).
 
 DIR is another checkout of the repository (``git archive`` of a commit
 unpacked into a directory that .gitignore lists); each tree builds its
@@ -23,9 +31,12 @@ own kernels into its own ``build/``. The shapes are ``chip_smoke.py``'s:
 K5 at hap --no-pack's (32, 12, 512, 64) causal with ragged key lengths,
 K5 with its lse at hala's (8, 12, 1024, 64), K7 at hap's packed (16, 12,
 1024, 64) with 64-token and with pack_segments' ragged segments, K6a and
-K6b at hala's (8, 12, 1024, 64) causal. Times are CUDA events around one
-call behind a spin (``chip_smoke.cuda_ms``), median of 5, the card's name
-and power limit printed first. The rates are the hap and hala paths that
+K6b at hala's (8, 12, 1024, 64) causal in bf16, and in fp32 at hala's
+fp32 (2, 12, 1024, 64) causal and --grad-norms' (1, 8, 384, 64)
+non-causal (``chip_smoke.GN_ATTN``), each beside SDPA's backward in the
+same dtype (dq, dk, dv from one autograd call). Times are CUDA events
+around one call behind a spin (``chip_smoke.cuda_ms``), median of 5, the
+card's name and power limit printed first. The rates are the hap and hala paths that
 run these kernels, and the device time of one hala update from
 torch.profiler (``rates``). Needs one card; imports nothing of JAX.
 """
@@ -110,28 +121,58 @@ def run_case(flash, flash_cuda, args, kind):
 
 
 def k6_args(torch, cs, flash_cuda, N, H, T, S, D, kvl, causal, t0, seed,
-            views=True):
+            views=True, dtype=None):
     """The arguments of the backward as hala makes them: q, k, v views of
     one projection (T == S) with K5's o and lse, and do a head-split view
-    of an (N, T, H D) gradient."""
+    of an (N, T, H D) gradient; bf16 unless ``dtype``."""
     dev = torch.device("cuda", 0)
+    dtype = dtype or torch.bfloat16
     if views and T == S:
-        q, k, v = cs.qkv_views(torch, dev, N, H, T, D, torch.bfloat16, seed)
+        q, k, v = cs.qkv_views(torch, dev, N, H, T, D, dtype, seed)
     else:
         g = torch.Generator().manual_seed(seed)
-        q, k, v = (torch.randn(shape, generator=g).to(dev, torch.bfloat16)
+        q, k, v = (torch.randn(shape, generator=g).to(dev, dtype)
                    for shape in ((N, H, T, D), (N, H, S, D), (N, H, S, D)))
     kvl = torch.as_tensor(kvl, dtype=torch.int32).to(dev)
     o, lse = flash_cuda.flash_fwd_cuda(q, k, v, kvl, causal, t0,
                                        with_lse=True)
     g = torch.Generator().manual_seed(seed + 1)
-    do = torch.randn((N, T, H * D), generator=g).to(dev, torch.bfloat16) \
+    do = torch.randn((N, T, H * D), generator=g).to(dev, dtype) \
         .reshape(N, T, H, D).transpose(1, 2)
     return q, k, v, kvl, causal, t0, o, lse, do
 
 
+# the backward's timed shapes: (label, N, H, T, causal, dtype name)
+K6_TIMED = [("(8, 12, 1024, 64) causal", 8, 12, 1024, True, "bfloat16"),
+            ("fp32 (2, 12, 1024, 64) causal", 2, 12, 1024, True,
+             "float32"),
+            ("fp32 (1, 8, 384, 64) non-causal (--grad-norms)", 1, 8, 384,
+             False, "float32")]
+
+
+def forced_splits(flash_cuda, dq, dkv):
+    """A ``bwd_f32_plan`` whose splits are (dq, dkv) (each at most the
+    reduction's tiles), for ``flash_cuda.bwd_f32_plan = ...``."""
+    from types import SimpleNamespace
+    plan = flash_cuda.bwd_f32_plan
+
+    def forced(N, H, T, S, D, causal, t0, sms):
+        p = vars(plan(N, H, T, S, D, causal, t0, sms)).copy()
+        for name, splits, outs in (("dq", dq, 1), ("dkv", dkv, 2)):
+            p[f"{name}_splits"] = splits
+            p[f"{name}_blocks"] = p[f"{name}_tiles"] * splits
+            p[f"{name}_part"] = p[f"{name}_blocks"] * outs * \
+                flash_cuda.F32_TILE * D if splits > 1 else 0
+        return SimpleNamespace(**p)
+    return forced
+
+
 def times(tree, backward_only=False):
+    """-> {label: ms}: the kernels at the main path's shapes, and fp32
+    K6a/K6b at --grad-norms' shape also with the plan's splits forced to
+    each of F32_SPLITS (where the tree splits)."""
     import torch
+    import torch.nn.functional as F
     cs, kernels, flash, flash_cuda, pack_segments = load(tree)
     kernels.library()
     res = {}
@@ -139,14 +180,36 @@ def times(tree, backward_only=False):
         for label, args, kind in cases(torch, cs, pack_segments):
             kern, _ = run_case(flash, flash_cuda, args, kind)
             res[label] = cs.cuda_ms(kern)
-    b = flash_cuda._bwd_args(*k6_args(torch, cs, flash_cuda, 8, 12, 1024,
-                                      1024, 64, [1024] * 8, True, 0, 21))
-    flash_cuda._bwd_dq(b)                  # the scratch that K6b reads
-    res["K6a (8, 12, 1024, 64) causal"] = cs.cuda_ms(
-        lambda: flash_cuda._bwd_dq(b))
-    res["K6b (8, 12, 1024, 64) causal"] = cs.cuda_ms(
-        lambda: flash_cuda._bwd_dkv(b))
+    for label, N, H, T, causal, dtype in K6_TIMED:
+        args = k6_args(torch, cs, flash_cuda, N, H, T, T, 64, [T] * N,
+                       causal, 0, 21, dtype=getattr(torch, dtype))
+        b = flash_cuda._bwd_args(*args)
+        flash_cuda._bwd_dq(b)              # the scratch that K6b reads
+        res[f"K6a {label}"] = cs.cuda_ms(lambda: flash_cuda._bwd_dq(b))
+        res[f"K6b {label}"] = cs.cuda_ms(lambda: flash_cuda._bwd_dkv(b))
+        ql, kl, vl = (t.detach().clone().requires_grad_(True)
+                      for t in args[:3])
+        out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+        res[f"SDPA backward {label}"] = cs.cuda_ms(lambda: torch.autograd.grad(
+            out, (ql, kl, vl), args[-1], retain_graph=True))
+        del out, ql, kl, vl, b
+        if dtype == "float32" and not causal and \
+                hasattr(flash_cuda, "bwd_f32_plan"):
+            plan = flash_cuda.bwd_f32_plan
+            for p in F32_SPLITS:
+                flash_cuda.bwd_f32_plan = forced_splits(flash_cuda, p, p)
+                b = flash_cuda._bwd_args(*args)
+                flash_cuda._bwd_dq(b)
+                res[f"K6a {label} splits {p}"] = cs.cuda_ms(
+                    lambda: flash_cuda._bwd_dq(b))
+                res[f"K6b {label} splits {p}"] = cs.cuda_ms(
+                    lambda: flash_cuda._bwd_dkv(b))
+                flash_cuda.bwd_f32_plan = plan
     return res
+
+
+# the splits timed beside the plan's at --grad-norms' shape
+F32_SPLITS = (1, 2, 3, 6)
 
 
 def device_ms(torch, fn):
@@ -240,12 +303,17 @@ def checks_backward(torch, cs, flash, flash_cuda):
     0: p = 1, ds = dp), then K5's o and lse at tile edges (T at 1, and T,
     S at 70, 127, 128, 129, 300; t0 up to 126; key lengths full, mid-tile
     and 0; D 64 and 32) and hala's shape, full and ragged key lengths, within
-    ``chip_smoke.K6_TOL``; the same bits twice. -> labels that failed."""
+    ``chip_smoke.K6_TOL``; the same bits twice. Then fp32 (``checks_f32``).
+    -> labels that failed."""
     dev = torch.device("cuda", 0)
     tol = cs.K6_TOL["bfloat16"]
     bad = []
 
-    def report(label, args):
+    def report(label, args, tol=tol):
+        plan = ""
+        if args[0].dtype == torch.float32:
+            p = flash_cuda._bwd_args(*args).plan
+            plan = f" (splits {p.dq_splits}, {p.dkv_splits})"
         got = flash_cuda.flash_bwd_cuda(*args)
         torch.cuda.synchronize()
         want = flash._backward_reference(*args)
@@ -257,7 +325,7 @@ def checks_backward(torch, cs, flash, flash_cuda):
                 worst.append(f"{tag} all zero {ok}")
             else:
                 rmax, rmean = cs.grad_gate(a, b, top)
-                ok = rmax <= tol["max"] and rmean <= tol["mean"]
+                ok = rmax <= tol["max"] and rmean <= tol.get("mean", 1.0)
                 worst.append(f"{tag} {rmax:.2e}/{rmean:.2e}")
             if not ok:
                 bad.append(f"{label} {tag}")
@@ -266,9 +334,9 @@ def checks_backward(torch, cs, flash, flash_cuda):
         if not same:
             bad.append(f"{label} not the same bits twice")
         ok = not any(x.startswith(label) for x in bad)
-        print(f"{'ok ' if ok else 'BAD'} K6 {label}: max/mean of the "
-              f"largest/mean {', '.join(worst)}; same bits twice {same}",
-              flush=True)
+        print(f"{'ok ' if ok else 'BAD'} K6 {label}{plan}: max/mean of "
+              f"the largest/mean {', '.join(worst)}; same bits twice "
+              f"{same}", flush=True)
 
     g = torch.Generator().manual_seed(5)
     for D in (64, 32):
@@ -302,7 +370,51 @@ def checks_backward(torch, cs, flash, flash_cuda):
     report("hala (8, 12, 1024, 64) causal, ragged key lengths",
            k6_args(torch, cs, flash_cuda, 8, 12, 1024, 1024, 64,
                    cs.K6_RAGGED, True, 0, 23))
+    checks_f32(torch, cs, flash_cuda, report)
     return bad
+
+
+def checks_f32(torch, cs, flash_cuda, report):
+    """fp32 K6a/K6b within K6_TOL["float32"]: the same tile edges, hala's
+    fp32 (2, 12, 1024, 64) causal (full, K6_RAGGED's first two lengths,
+    t0 = 64 with T = 960) and --grad-norms' (1, 8, 384, 64) non-causal,
+    each at the plan's splits and with other splits forced (1, 2, 3, 6,
+    and K6a / K6b apart)."""
+    f32 = dict(dtype=torch.float32, tol=cs.K6_TOL["float32"])
+    plan = flash_cuda.bwd_f32_plan
+    cases = []
+    for D in (64, 32):
+        for T, S, causal, t0 in ((1, 129, False, 0), (70, 70, True, 0),
+                                 (129, 129, True, 0), (300, 300, True, 0),
+                                 (70, 300, True, 126), (129, 300, True, 65),
+                                 (300, 129, False, 0), (300, 70, True, 0)):
+            cases.append((f"fp32 T={T} S={S} causal={causal} t0={t0} D={D}",
+                          (3, 2, T, S, D, [S, max(S // 2 + 1, 1), 0],
+                           causal, t0, T + S + D, False)))
+    N, H, T, D = cs.GN_ATTN
+    cases += [
+        ("fp32 hala (2, 12, 1024, 64) causal",
+         (2, 12, 1024, 1024, 64, [1024] * 2, True, 0, 21, True)),
+        ("fp32 hala (2, 12, 1024, 64) causal, ragged",
+         (2, 12, 1024, 1024, 64, cs.K6_RAGGED[:2], True, 0, 23, True)),
+        ("fp32 (2, 12, 960, 1024, 64) causal t0=64, ragged",
+         (2, 12, 960, 1024, 64, cs.K6_RAGGED[:2], True, 64, 24, False)),
+        (f"fp32 --grad-norms {cs.GN_ATTN}",
+         (N, H, T, T, D, [T] * N, False, 0, 41, True)),
+        (f"fp32 --grad-norms {cs.GN_ATTN} x2, ragged, zero",
+         (2, H, T, T, D, [200, 0], False, 0, 42, True))]
+    for label, (N, H, T, S, D, kvl, causal, t0, seed, views) in cases:
+        args = k6_args(torch, cs, flash_cuda, N, H, T, S, D, kvl, causal,
+                       t0, seed, views=views, dtype=f32["dtype"])
+        report(label, args, f32["tol"])
+        if "--grad-norms" in label or "t0=64" in label:
+            for dq, dkv in ((1, 1), (2, 2), (3, 3), (6, 6), (2, 5)):
+                flash_cuda.bwd_f32_plan = forced_splits(flash_cuda, dq, dkv)
+                try:
+                    report(f"{label}, forced splits ({dq}, {dkv})", args,
+                           f32["tol"])
+                finally:
+                    flash_cuda.bwd_f32_plan = plan
 
 
 def checks(tree, backward_only=False):
@@ -386,6 +498,55 @@ def checks(tree, backward_only=False):
     return bad
 
 
+def clocks(tree):
+    """fp32 K6a, then K6b, at hala's fp32 (2, 12, 1024, 64) causal, each
+    called back to back for ~2 s while ``nvidia-smi`` samples the SM
+    clock and the power draw every 100 ms: the median clock under the
+    load, and each kernel's FFMA rate (its operations over its time, as
+    chip_smoke.k6_bound counts them) against the card's 128 FFMA a clock
+    an SM at that clock and at the data sheet's 67 TFLOP/s."""
+    import statistics
+    import time
+    import torch
+    cs, kernels, flash, flash_cuda, _ = load(tree)
+    kernels.library()
+    N, H, T, D = 2, 12, 1024, 64
+    args = k6_args(torch, cs, flash_cuda, N, H, T, T, D, [T] * N, True, 0,
+                   21, dtype=torch.float32)
+    b = flash_cuda._bwd_args(*args)
+    flash_cuda._bwd_dq(b)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    pairs = N * T * (T + 1) // 2
+    for name, fn, products in (("K6a", flash_cuda._bwd_dq, 3),
+                               ("K6b", flash_cuda._bwd_dkv, 4)):
+        ms = cs.cuda_ms(lambda: fn(b))
+        flops = 2.0 * products * pairs * H * D + cs.K6_ELEM * pairs * H
+        smi = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, text=True)
+        try:
+            end = time.time() + 2.0
+            while time.time() < end:
+                for _ in range(50):
+                    fn(b)
+                torch.cuda.synchronize()
+        finally:
+            smi.terminate()
+            out = smi.communicate(timeout=30)[0]
+        rows = [[float(x) for x in line.split(",")]
+                for line in out.splitlines() if line.strip()]
+        mhz = statistics.median(r[0] for r in rows[2:] or rows)
+        watts = statistics.median(r[1] for r in rows[2:] or rows)
+        rate = flops / ms / 1e9
+        peak = 128 * 2 * sms * mhz * 1e6 / 1e12
+        print(f"{name} fp32 ({N}, {H}, {T}, {D}) causal: {ms:.4f} ms, "
+              f"{rate:.1f} TFLOP/s; SM clock under load {mhz:.0f} MHz "
+              f"({len(rows)} samples), power {watts:.1f} W: {rate / peak:.1%}"
+              f" of {peak:.1f} TFLOP/s at that clock, {rate / 67:.1%} of "
+              f"the data sheet's 67", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", type=Path, default=HERE)
@@ -395,6 +556,8 @@ def main():
                     help="check and time K6a and K6b only")
     ap.add_argument("--kernels-only", action="store_true",
                     help="with --against or --times-only: no rates")
+    ap.add_argument("--clocks", action="store_true",
+                    help="fp32 K6a/K6b's FFMA rate beside the SM clock")
     a = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -409,6 +572,9 @@ def main():
         print(json.dumps(res), flush=True)
         return
     print(card, flush=True)
+    if a.clocks:
+        clocks(a.tree)
+        return
     if a.against:
         runs = []
         for tree in (a.against, a.tree, a.tree, a.against):
