@@ -2832,10 +2832,12 @@ def phase_flash(torch, dev):
         torch.cuda.synchronize()
         ok, err, mean = within(torch, got, flash._reference(q, k, v, kvl, True,
                                                        7), ATTN_TOL[name])
+        lse_line = f32_lse_line(torch, flash, flash_cuda, got, q, k, v, kvl,
+                                True, 7)
         print(f"K5 flash small (2, 2, 70, 130) t0=7 key lengths [0, 90] "
               f"{name}: max|do|={err:.3e} mean {mean:.3e} (tol "
-              f"{ATTN_TOL[name]}; the zero-length row is the mean of v)",
-              flush=True)
+              f"{ATTN_TOL[name]}; the zero-length row is the mean of v)"
+              f"{lse_line}", flush=True)
         check(ok, f"K5 disagrees with _reference at the small {name} case")
 
     # K5 at hap --no-pack: (32, 12, 512, 64) causal, ragged key lengths
@@ -2860,11 +2862,13 @@ def phase_flash(torch, dev):
             q, k, v, is_causal=True))
         b_ms, b_by = attn_bound(q, pairs, q.element_size(),
                                 key_rows=int(lens.clamp(max=T).sum()))
+        lse_line = f32_lse_line(torch, flash, flash_cuda, got, q, k, v, kvl,
+                                True, 0)
         print(f"K5 flash ({n}, {H}, {T}, {D}) causal, ragged key lengths, "
               f"{name}: max|do|={err:.3e} mean {mean:.3e} (tol "
-              f"{ATTN_TOL[name]}); kernel {ms:.4f} ms, plain {plain_ms:.3f} "
-              f"ms, SDPA(is_causal) {lib_ms:.3f} ms, bound {b_ms:.4f} ms "
-              f"({b_by})", flush=True)
+              f"{ATTN_TOL[name]}){lse_line}; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, SDPA(is_causal) {lib_ms:.3f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by})", flush=True)
         check(ok, f"K5 disagrees with _reference at {(n, H, T, D, name)}")
         if name == "bfloat16":
             flash_faults(torch, flash, got, q, k, v, kvl, 0, ragged=True)
@@ -2908,7 +2912,56 @@ def phase_flash(torch, dev):
         check(ok, f"K7 disagrees with _packed_reference ({label})")
         k7[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+    # K7 in fp32 (unsplit) at a reduced hap --pack: 4 of the 16 rows of
+    # pack_segments' ragged segments
+    n = 4
+    q, k, v = qkv_views(torch, dev, n, H, T, D, torch.float32, 13)
+    seg = torch.from_numpy(np.ascontiguousarray(seg_ragged[:n],
+                                                np.int32)).to(dev)
+    got = flash_cuda.flash_packed_cuda(q, k, v, seg, True)
+    again = flash_cuda.flash_packed_cuda(q, k, v, seg, True)
+    torch.cuda.synchronize()
+    ok, err, mean = within(torch, got, flash._packed_reference(
+        q, k, v, seg, True), ATTN_TOL["float32"])
+    same = (seg[:, :, None] == seg[:, None, :]) & torch.ones(
+        (T, T), dtype=torch.bool, device=dev).tril()
+    pairs = int(same.sum())
+    ms = cuda_ms(lambda: flash_cuda.flash_packed_cuda(q, k, v, seg, True))
+    plain_ms = cuda_ms(lambda: flash._packed_reference(q, k, v, seg, True))
+    mask = same[:, None]
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask))
+    b_ms, b_by = attn_bound(q, pairs, 4)
+    print(f"K7 flash packed ({n}, {H}, {T}, {D}) fp32, pack_segments' ragged "
+          f"segments: max|do|={err:.3e} mean {mean:.3e} (tol "
+          f"{ATTN_TOL['float32']}); same bits twice "
+          f"{torch.equal(got, again)}; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, SDPA with the block-diagonal causal mask "
+          f"{lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+    check(ok and torch.equal(got, again),
+          "fp32 K7 disagrees with _packed_reference")
+    k7[f"{n}x{H}x{T}x{D} fp32, ragged segments"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms)
     return by_shape(k5), by_shape(k7)
+
+
+def f32_lse_line(torch, flash, flash_cuda, got, q, k, v, kvl, causal, t0):
+    """fp32 K5 with its lse beside ``got`` (K5 without it) on the same
+    inputs: the lse within 1e-3 of ``_reference``'s and o the same bits
+    -> the text to print ("" in bf16); raises if either fails."""
+    if q.dtype != torch.float32:
+        return ""
+    o, lse = flash_cuda.flash_fwd_cuda(q, k, v, kvl, causal, t0,
+                                       with_lse=True)
+    lse_e = flash._reference(q, k, v, kvl, causal, t0, with_lse=True)[1]
+    torch.cuda.synchronize()
+    dl = (lse - lse_e).abs().max().item()
+    check(dl <= 1e-3 and torch.equal(o, got),
+          f"fp32 K5-lse disagrees with _reference or K5 at "
+          f"{tuple(q.shape)}: max|dlse| {dl:.3e}")
+    return f", with the lse max|dlse| {dl:.3e} (tol 1e-3), o the same bits"
 
 
 def ce_faults(torch, fused_ce_cuda, x, w, t, nll_e, lse_e):
@@ -4084,6 +4137,40 @@ def k6_plan_line(flash_cuda, args):
     return (f"K6a {p.dq_splits} split(s) of {p.dq_tiles} query tiles "
             f"({p.dq_blocks} blocks), K6b {p.dkv_splits} of {p.dkv_tiles} "
             f"key tiles ({p.dkv_blocks} blocks)")
+
+
+def k5_plan_line(flash_cuda, q, k, causal, t0):
+    """The fp32 K5 plan of q, k as one line's text."""
+    from haloop_tpu_torch import kernels
+    N, H, T, D = q.shape
+    p = flash_cuda.fwd_f32_plan(N, H, T, k.shape[2], D, causal, t0,
+                                kernels.multiprocessors(q.device))
+    return (f"K5 {p.splits} split(s) of {p.tiles} query tiles ({p.blocks} "
+            f"blocks)")
+
+
+def k5_split_fault(torch, flash_cuda, want, q, k, v, kvl):
+    """fp32 K5's planted fault at a split, non-causal shape, emulated
+    through K5 itself: the last split's keys left out (key lengths ending
+    at that split's first key). It must read beyond ATTN_TOL["float32"]
+    against the plain version's ``want``; raises if the check would pass
+    it."""
+    from haloop_tpu_torch import kernels
+    N, H, T, D = q.shape
+    S, tile = k.shape[2], flash_cuda.F32_TILE
+    p = flash_cuda.fwd_f32_plan(N, H, T, S, D, False, 0,
+                                kernels.multiprocessors(q.device))
+    check(p.splits > 1, "the K5 split fault needs a split shape")
+    cut = flash_cuda.f32_split_range(-(-S // tile), p.splits,
+                                     p.splits - 1)[0] * tile
+    got = flash_cuda.flash_fwd_cuda(q, k, v, torch.clamp(kvl, max=cut),
+                                    False, 0)
+    ok, err, mean = within(torch, got, want, ATTN_TOL["float32"])
+    print(f"  planted fault, K5's last split's keys left out (keys from "
+          f"{cut}): max|do| {err:.3e} mean {mean:.3e} (tol "
+          f"{ATTN_TOL['float32']}; the check must fail)", flush=True)
+    check(not ok, "fp32 K5's check passes a planted fault: the last split's "
+                  "keys left out")
 
 
 def k6_f32_cases(torch, flash, flash_cuda, q, k, v, do):
@@ -5825,12 +5912,18 @@ def grad_norm_kernels(torch, dev):
           f"{lse_err:.3e} (tol {ATTN_TOL['float32']}, lse 1e-3); " +
           ", ".join(f"{t} max|d| {r[0]:.3e} of the largest" for t, r in
                     reads.items()) + f" (tol {K6_TOL['float32']}); "
+          f"{k5_plan_line(flash_cuda, q, k, False, 0)}, "
           f"{k6_plan_line(flash_cuda, fargs)}", flush=True)
     check(ok and lse_err <= 1e-3 and ok6,
           f"the fp32 flash kernels disagree with plain at {GN_ATTN}")
+    o2, lse2 = flash_cuda.flash_fwd_cuda(q, k, v, kvl, False, 0,
+                                         with_lse=True)
+    check(torch.equal(o, o2) and torch.equal(lse, lse2),
+          f"fp32 K5-lse is not deterministic at {GN_ATTN}")
     again = flash_cuda.flash_bwd_cuda(*fargs)
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           f"fp32 K6a/K6b are not deterministic at {GN_ATTN}")
+    k5_split_fault(torch, flash_cuda, o_e, q, k, v, kvl)
     k6_split_fault(torch, flash, flash_cuda, got, fargs)
     pairs = N * Tq * Tq
     b = flash_cuda._bwd_args(*fargs)

@@ -132,6 +132,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "flash_f32.cuh"
 #include "mma.cuh"
 #include "sm90.cuh"
 
@@ -139,8 +140,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int FT = 64;        // fp32: query rows a tile, keys a tile
-constexpr int FTHREADS = 128; // fp32: 16 x 8 threads, a 4 x 8 patch each
+using namespace hl::f32;      // fp32: FT, FTHREADS, Tiles, ...
 constexpr int BM = 128;       // bf16: K6a's query rows an item, K6b's keys
 constexpr int BN = 128;       // bf16: K6a's keys a tile
 constexpr int BT = 64;        // bf16: K6b's query rows a tile
@@ -695,53 +695,21 @@ flash_bwd_dkv_wg(const __grid_constant__ CUtensorMap qmap,
 
 // ------------------------------------------------ fp32, CUDA cores
 
-// A block's 128 threads as 16 rows of 8 (ty, tx). Over a 64 x 64 tile of
-// scores a thread owns the 4 x 8 patch of rows ty + 16 r and columns
-// tx + 8 c; over a 64 x HD output tile the 4 x HD/8 patch of the same
-// rows and columns tx * 4 + 32 g + (0..3), g < HD/32. Tiles lie in shared
-// memory row-major, FT rows: rows of q, k, v or do LD floats apart, rows
-// of scores (K6a's dS, K6b's P^T and dS^T) SLD apart. With these strides
-// the float4 loads of a warp (4 rows ty, or 8 rows tx + 8 c, or 8
-// neighbouring chunks of one row) and its scattered stores of scores each
-// touch every bank at most once. Every tile has room for FT rows of SLD
-// (K6a writes dS over a V tile).
+// fp32 shared memory (csrc/flash_f32.cuh's tiles)
 template <int HD>
-struct F32 {
-  static_assert(HD == 32 || HD == 64, "head widths");
-  static constexpr int LD = HD + 4, SLD = FT + 8;
-  static constexpr int TILE = FT * SLD;         // floats a tile
-  static constexpr int CW = HD / 8;             // output columns a thread
+struct F32 : Tiles<HD> {
   // K6a: Q | dO | [2] (K | V) tiles, then lse log2(e) and delta of the
   // tile's rows; K6b: K | V | Q | dO | P^T | dS^T tiles, then lse and
-  // delta of the query tile's rows
-  static constexpr int DQ_BYTES = (6 * TILE + 2 * FT) * 4;
-  static constexpr int DKV_BYTES = (6 * TILE + 2 * FT) * 4;
+  // delta of the query tile's rows. K6a writes dS over a V tile.
+  static constexpr int DQ_BYTES = (6 * Tiles<HD>::TILE + 2 * FT) * 4;
+  static constexpr int DKV_BYTES = (6 * Tiles<HD>::TILE + 2 * FT) * 4;
 };
-
-// rows [r0, r0 + FT) of a (rows, HD) fp32 matrix with row stride st into
-// a tile by cp.async; rows past ``rows`` are zeros
-template <int HD>
-__device__ __forceinline__ void issue_tile(float* dst, const float* src,
-                                           int r0, int rows, int st) {
-  constexpr int CH = HD / 4;                     // 16-byte chunks a row
-  for (int i = threadIdx.x; i < FT * CH; i += FTHREADS) {
-    const int r = i / CH, c = (i % CH) * 4;
-    const bool ok = r0 + r < rows;
-    hl::cp_async16_zfill(dst + r * F32<HD>::LD + c,
-                         src + (size_t)(ok ? r0 + r : 0) * st + c, ok);
-  }
-}
 
 // one float by cp.async; zero where !valid
 __device__ __forceinline__ void cp_async4_zfill(float* smem, const float* g,
                                                 bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(hl::smem_addr(smem)), "l"(g), "r"(valid ? 4 : 0));
-}
-
-// component u of a float4
-__device__ __forceinline__ float comp(const float4& v, int u) {
-  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
 }
 
 // S = A B^T and S2 = A2 B2^T over rows of HD of four tiles: acc[r][c] +=
@@ -781,41 +749,6 @@ __device__ __forceinline__ void rows_dot2(float (&acc)[4][8],
   }
 }
 
-// acc[r][4 g + u] += sum_j W[ty + 16 r][j] X[j][tx 4 + 32 g + u] over the
-// FT rows j of X, in j's order; W a tile of scores
-template <int HD>
-__device__ __forceinline__ void rows_times(float (&acc)[4][F32<HD>::CW],
-                                           const float* W, const float* X,
-                                           int ty, int tx) {
-  constexpr int LD = F32<HD>::LD, SLD = F32<HD>::SLD, NG = HD / 32;
-#pragma unroll 4
-  for (int j = 0; j < FT; j += 4) {
-    float4 w[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      w[r] = *reinterpret_cast<const float4*>(W + (ty + 16 * r) * SLD + j);
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      float4 x[NG];
-#pragma unroll
-      for (int g = 0; g < NG; ++g)
-        x[g] = *reinterpret_cast<const float4*>(X + (j + jj) * LD + tx * 4 +
-                                                32 * g);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float wr = comp(w[r], jj);
-#pragma unroll
-        for (int g = 0; g < NG; ++g) {
-          acc[r][4 * g] = fmaf(wr, x[g].x, acc[r][4 * g]);
-          acc[r][4 * g + 1] = fmaf(wr, x[g].y, acc[r][4 * g + 1]);
-          acc[r][4 * g + 2] = fmaf(wr, x[g].z, acc[r][4 * g + 2]);
-          acc[r][4 * g + 3] = fmaf(wr, x[g].w, acc[r][4 * g + 3]);
-        }
-      }
-    }
-  }
-}
-
 // a thread's 4 x CW output patch: row r's floats 4 g .. 4 g + 3 at
 // ``row(r) + 32 g``, times ``mul`` (to), or from L2 (from)
 template <int CW, typename F>
@@ -847,14 +780,6 @@ __device__ __forceinline__ void patch_add(float (&x)[4][CW], const float* p,
       for (int u = 0; u < 4; ++u)
         x[r][4 * g + u] = first ? y[u] : x[r][4 * g + u] + y[u];
     }
-}
-
-// the [s n / P, (s + 1) n / P) share of n reduction tiles that split s of
-// P takes (flash_cuda.f32_split_range)
-__device__ __forceinline__ void split_range(int n, int P, int s, int* lo,
-                                            int* hi) {
-  *lo = (int)((long long)n * s / P);
-  *hi = (int)((long long)n * (s + 1) / P);
 }
 
 // The splits' merge. Every split of an output tile writes its sums

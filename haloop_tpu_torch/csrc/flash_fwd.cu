@@ -22,7 +22,13 @@
 // D=64, causal) the causal half of the scores is 3.2 GFLOP of bf16
 // products against 75 MB of q, k, v and o: about 1/100 of the card's
 // operations-per-byte balance point, so the bound is the bytes (26 us);
-// at hala's (8, 12, 1024, 64) with the lse, 18 us.
+// at hala's (8, 12, 1024, 64) with the lse, 18 us. In fp32 every product
+// is exact FFMA on the CUDA cores (no TF32: the port's fp32 products run
+// with TF32 off, and the --grad-norms rows this mode serves are held to
+// the JAX package's): at hala's fp32 (2, 12, 1024, 64) causal 3.3 GFLOP
+// against 25 MB, so the fp32 rate (67 TFLOP/s: 49 us) and not the bytes;
+// at --grad-norms' (1, 8, 384, 64) non-causal 0.31 GFLOP (4.6 us), under
+// a launch's ~5 us floor, where 64-row query tiles number 48 for 132 SMs.
 //
 // This design (bf16, Hopper): a persistent kernel, at most one block of
 // three warpgroups per SM, each block running a contiguous run of work
@@ -55,9 +61,30 @@
 // shared memory beside it. The elementwise mask runs only on tiles that
 // straddle a boundary, as one compare of each column against a per-row
 // limit (testing each condition in turn for every score cost the kernel
-// more than its exponentials). fp32 inputs take a CUDA-core kernel,
-// one thread per query row of a 64-row tile, the scores of a 64-key tile
-// kept in shared memory.
+// more than its exponentials).
+//
+// This design (fp32, fwd_f32; the tiling of csrc/flash_f32.cuh, shared
+// with the fp32 backward): a block of 128 threads owns a 64-row query
+// tile, Q resident in shared memory, and streams the 64-key tiles of k
+// and v through a 2-stage cp.async ring, the next tile loading while
+// this one is computed. Each thread computes a 4 x 8 patch of S = Q K^T
+// in one loop from float4 loads of padded rows, the FFMAs of its 32
+// independent sums interleaved; the online softmax runs on the patches
+// in base 2 (a row's max and sum over its 8 lanes by __shfl_xor_sync,
+// log2(e)/sqrt(D) folded into the exponent's multiply-add, the rescale a
+// row, the normalization once at the end); P goes to shared memory over
+// the k tile it came from, and O += P V runs the same tiling into a 4 x
+// D/8 patch of the output. The skip rules are ``plan``'s and, in K7,
+// ``seg_tile_live``'s; the mask only on tiles that straddle a row's last
+// key. Where the query tiles leave SMs idle, flash_cuda.fwd_f32_plan
+// splits each tile's keys into P ranges of whole tiles, a block each
+// (``split_range``); each split writes its (m, l, acc) to an fp32
+// scratch, and the last split of a tile to arrive (a per-tile counter,
+// left 0 for the next call) merges them in split order: m = max m_s, l =
+// sum l_s 2^(m_s - m), o = sum acc_s 2^(m_s - m) / max(l, 1e-30). One
+// launch a call, no atomics in any sum, the same bits from run to run.
+// K7's fp32 mode runs unsplit (its live key tiles depend on the segment
+// ids, which the plan does not read).
 // Later perf_opt: the two consumers' ping-pong, as FlashAttention-3
 // does (issuing the next Q K^T ahead of the softmax alone, without it,
 // read 15% slower here).
@@ -67,18 +94,18 @@
 #include <limits.h>
 #include <math.h>
 
+#include "flash_f32.cuh"
 #include "mma.cuh"
 #include "sm90.cuh"
 
 namespace {
 
+using namespace hl::f32;    // fp32: FT, FTHREADS, Tiles, ...
 using bf16 = __nv_bfloat16;
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr float NEG2 = NEG * LOG2E;     // NEG in base 2: m2 * LN2 == NEG
-constexpr int BQ = 64;      // fp32: query rows per block
-constexpr int BK = 64;      // fp32: keys per tile
 constexpr int BM = 128;     // bf16: query rows per block
 constexpr int BN = 128;     // bf16: keys per tile
 constexpr int STAGES = 3;   // bf16: k/v tiles in flight
@@ -111,14 +138,14 @@ __device__ __forceinline__ Plan plan(const Dims& d, const int* kvl,
   return p;
 }
 
-// K7: whether key tile [k0, k0 + BK) can hold a segment of the query
+// K7: whether key tile [k0, k0 + FT) can hold a segment of the query
 // tile (its [min, max] of segment ids meets [qmin, qmax]). Each warp
 // reduces the tile's ids itself, so every warp reaches the same answer
 // with no barrier.
 __device__ __forceinline__ bool seg_tile_live(const int* segn, int S, int k0,
                                               int qmin, int qmax) {
   int lo = INT_MAX, hi = INT_MIN;
-  for (int c = k0 + threadIdx.x % 32; c < min(k0 + BK, S); c += 32) {
+  for (int c = k0 + threadIdx.x % 32; c < min(k0 + FT, S); c += 32) {
     lo = min(lo, segn[c]);
     hi = max(hi, segn[c]);
   }
@@ -135,7 +162,7 @@ __device__ __forceinline__ void seg_query_range(const int* segn, int T, int q0,
     range[1] = INT_MIN;
   }
   __syncthreads();
-  if (segn && threadIdx.x < BQ && q0 + threadIdx.x < T) {
+  if (segn && threadIdx.x < FT && q0 + threadIdx.x < T) {
     atomicMin(&range[0], segn[q0 + threadIdx.x]);
     atomicMax(&range[1], segn[q0 + threadIdx.x]);
   }
@@ -500,112 +527,289 @@ flash_wg(const __grid_constant__ CUtensorMap qmap,
 
 // ------------------------------------------------ fp32, CUDA cores
 
+// S = A B^T over rows of HD of two tiles (csrc/flash_f32.cuh's layout):
+// acc[r][c] += A[ty + 16 r] . B[tx + 8 c], each sum in e's order. A step
+// has 32 independent sums, each FFMA 32 behind its sum's last one, the
+// next step's loads in flight behind them
 template <int HD>
-__global__ void __launch_bounds__(BQ)
-flash_fp32(const float* __restrict__ q, const float* __restrict__ k,
-           const float* __restrict__ v, const int* __restrict__ kvl,
-           const int* __restrict__ seg, float* __restrict__ o,
-           float* __restrict__ lse, Dims d, int causal, int t0, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* Ks = reinterpret_cast<float*>(smem);         // [BK][HD]
-  float* Vs = Ks + BK * HD;                           // [BK][HD]
-  float* sc = Vs + BK * HD;                           // [BK][BQ] scores
-  int* segk = reinterpret_cast<int*>(sc + BK * BQ);   // [BK]
-  __shared__ int range[2];
-
-  const int tid = threadIdx.x;
-  const int nh = blockIdx.y, n = nh / d.H, h = nh % d.H;
-  const int q0 = blockIdx.x * BQ, row = q0 + tid;
-  const int T = d.T, S = d.S;
-  const float* kb = k + (size_t)n * d.k_sn + (size_t)h * d.k_sh;
-  const float* vb = v + (size_t)n * d.v_sn + (size_t)h * d.v_sh;
-  const int* segn = seg ? seg + (size_t)n * T : nullptr;
-  const Plan pl = plan<BQ, BK>(d, kvl, seg, n, q0, causal, t0);
-
-  float qr[HD], acc[HD];
-  const float* qrow = q + (size_t)n * d.q_sn + (size_t)h * d.q_sh +
-                      (size_t)row * d.q_st;
+__device__ __forceinline__ void rows_dot(float (&acc)[4][8], const float* A,
+                                         const float* B, int ty, int tx) {
+  constexpr int LD = Tiles<HD>::LD;
+#pragma unroll 4
+  for (int e = 0; e < HD; e += 4) {
+    float4 a[4], b[8];
 #pragma unroll
-  for (int e = 0; e < HD; ++e) {
-    qr[e] = row < T ? qrow[e] : 0.f;
-    acc[e] = 0.f;
+    for (int r = 0; r < 4; ++r)
+      a[r] = *reinterpret_cast<const float4*>(A + (ty + 16 * r) * LD + e);
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      b[c] = *reinterpret_cast<const float4*>(B + (tx + 8 * c) * LD + e);
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          acc[r][c] = fmaf(comp(a[r], u), comp(b[c], u), acc[r][c]);
   }
-  const int segq = (segn && row < T) ? segn[row] : -1;
-  seg_query_range(segn, T, q0, range);
-  const int qmin = range[0], qmax = range[1];
-
-  float m = NEG, l = 0.f;
-  for (int kt = 0; kt < pl.nk; ++kt) {
-    const int k0 = kt * BK;
-    if (segn && !seg_tile_live(segn, S, k0, qmin, qmax)) continue;
-    if (segn) segk[tid] = k0 + tid < S ? segn[k0 + tid] : -1;
-    for (int i = tid; i < BK * HD / 4; i += BQ) {
-      const int r = i / (HD / 4), c = (i % (HD / 4)) * 4;
-      float4 kv4 = make_float4(0.f, 0.f, 0.f, 0.f), vv4 = kv4;
-      if (k0 + r < S) {
-        kv4 = *reinterpret_cast<const float4*>(kb + (size_t)(k0 + r) *
-                                               d.k_st + c);
-        vv4 = *reinterpret_cast<const float4*>(vb + (size_t)(k0 + r) *
-                                               d.v_st + c);
-      }
-      *reinterpret_cast<float4*>(Ks + r * HD + c) = kv4;
-      *reinterpret_cast<float4*>(Vs + r * HD + c) = vv4;
-    }
-    __syncthreads();
-    float mx = -INFINITY;
-    for (int j = 0; j < BK; ++j) {
-      const int c = k0 + j;
-      float x = -INFINITY;
-      if (c < S) {
-        float dot = 0.f;
-#pragma unroll
-        for (int e = 0; e < HD; ++e) dot = fmaf(qr[e], Ks[j * HD + e], dot);
-        x = dot * scale;
-        if (pl.uniform || c >= pl.kvlen || (causal && c > t0 + row) ||
-            (segn && segq != segk[j]))
-          x = NEG;
-      }
-      sc[j * BQ + tid] = x;
-      mx = fmaxf(mx, x);
-    }
-    const float mn = fmaxf(m, mx), corr = expf(m - mn);
-    m = mn;
-    l *= corr;
-#pragma unroll
-    for (int e = 0; e < HD; ++e) acc[e] *= corr;
-    for (int j = 0; j < BK; ++j) {
-      const float p = expf(sc[j * BQ + tid] - m);
-      l += p;
-#pragma unroll
-      for (int e = 0; e < HD; ++e) acc[e] = fmaf(p, Vs[j * HD + e], acc[e]);
-    }
-    __syncthreads();
-  }
-  if (row >= T) return;
-  const float lc = fmaxf(l, 1e-30f), inv = 1.f / lc;
-  float* orow = o + (size_t)n * d.o_sn + (size_t)h * d.o_sh +
-                (size_t)row * d.o_st;
-#pragma unroll
-  for (int e = 0; e < HD; ++e) orow[e] = acc[e] * inv;
-  if (lse) lse[(size_t)nh * T + row] = m + logf(lc);
 }
 
+// the max of a row over its 8 threads (neighbouring lanes)
+__device__ __forceinline__ float row_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
+}
+
+__device__ __forceinline__ float row_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  return x + __shfl_xor_sync(0xffffffffu, x, 4);
+}
+
+// K5 and K7 in fp32. Block b: split s = b % P of the (n*h, 64-row query
+// tile) b / P, the query tiles latest first (the causal ones with the
+// most keys), the heads within. Q stays in shared memory; the split's
+// key tiles (K7: those whose segment ids can meet the query tile's)
+// stream through a 2-stage ring of k and v; P takes the place of the k
+// tile it came from. With P > 1 each split writes its (m, l, acc) to
+// ``part`` and the last of the tile's splits to arrive (``ctr``) merges
+// them in split order. m is the running max in base 2 (the scores times
+// log2(e)/sqrt(D)), NEG2 for a masked score, -inf past S.
+template <int HD, bool SEG>
+__global__ void __launch_bounds__(FTHREADS, 2)
+fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+        const float* __restrict__ v, const int* __restrict__ kvl,
+        const int* __restrict__ seg, float* __restrict__ o,
+        float* __restrict__ lse, float* part, int* ctr, Dims d, int causal,
+        int t0, float scale2, int P) {
+  using L = Tiles<HD>;
+  constexpr int CW = L::CW, SLOT = FT * HD + 2 * FT;   // a split's partial
+  extern __shared__ __align__(16) float fsm[];
+  float* Qs = fsm;
+  float* ring = fsm + L::TILE;                         // [2] (K | V)
+  int* segk = reinterpret_cast<int*>(fsm + 5 * L::TILE);   // [2][FT]
+  __shared__ int range[2], last;
+
+  const int tid = threadIdx.x, tx = tid % 8, ty = tid / 8;
+  const int T = d.T, S = d.S, NH = d.N * d.H, QT = (T + FT - 1) / FT;
+  const int s = blockIdx.x % P, w = blockIdx.x / P;
+  const int nh = w % NH, qt = QT - 1 - w / NH;
+  const int n = nh / d.H, h = nh % d.H, q0 = qt * FT;
+  const long long tile = (long long)nh * QT + qt;
+  const float* kb = k + (size_t)n * d.k_sn + (size_t)h * d.k_sh;
+  const float* vb = v + (size_t)n * d.v_sn + (size_t)h * d.v_sh;
+  const int* segn = SEG ? seg + (size_t)n * T : nullptr;
+  const Plan pl = plan<FT, FT>(d, kvl, seg, n, q0, causal, t0);
+  int k_lo, k_hi;
+  split_range(pl.nk, P, s, &k_lo, &k_hi);
+
+  int qmin = 0, qmax = 0;
+  if (SEG) {
+    seg_query_range(segn, T, q0, range);
+    qmin = range[0];
+    qmax = range[1];
+  }
+  // the split's next key tile after kt (K7: the next live one); every
+  // warp reaches the same answer
+  auto next = [&](int kt) {
+    for (++kt; SEG && kt < k_hi; ++kt)
+      if (seg_tile_live(segn, S, kt * FT, qmin, qmax)) break;
+    return kt;
+  };
+  auto issue = [&](int kt, int st) {
+    float* Ks = ring + st * 2 * L::TILE;
+    issue_tile<HD>(Ks, kb, kt * FT, S, d.k_st);
+    issue_tile<HD>(Ks + L::TILE, vb, kt * FT, S, d.v_st);
+    if (SEG && tid < FT)          // published by the loop's barrier
+      segk[st * FT + tid] = kt * FT + tid < S ? __ldg(segn + kt * FT + tid)
+                                              : -1;
+  };
+  issue_tile<HD>(Qs, q + (size_t)n * d.q_sn + (size_t)h * d.q_sh, q0, T,
+                 d.q_st);
+  int kt = next(k_lo - 1);
+  if (kt < k_hi) issue(kt, 0);
+  hl::cp_async_commit();
+
+  // the last key each of this thread's rows attends (masked past it; a
+  // uniform row, kv_lengths 0, has every key masked), and the least of
+  // that over the tile's 64 rows: a key tile past it needs the mask
+  const int kvlen = min(pl.kvlen, S);
+  int cmax[4], segq[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = q0 + ty + 16 * r;
+    cmax[r] = causal && !pl.uniform ? min(kvlen - 1, t0 + row) : kvlen - 1;
+    segq[r] = SEG && row < T ? __ldg(segn + row) : -1;
+  }
+  const int cmax_tile =
+      causal && !pl.uniform ? min(kvlen - 1, t0 + q0) : kvlen - 1;
+
+  float m[4], l[4], acc[4][CW];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    m[r] = NEG2;
+    l[r] = 0.f;
+#pragma unroll
+    for (int u = 0; u < CW; ++u) acc[r][u] = 0.f;
+  }
+
+  for (int i = 0; kt < k_hi; ++i) {
+    const int st = i & 1, k0 = kt * FT;
+    float* Ks = ring + st * 2 * L::TILE;
+    float* Vs = Ks + L::TILE;
+    hl::cp_async_wait<0>();
+    __syncthreads();              // tile i landed; tile i - 1's reads done
+    const int kn = next(kt);
+    if (kn < k_hi) {              // the next k and v tiles, during this one
+      issue(kn, st ^ 1);
+      hl::cp_async_commit();
+    }
+    float sc[4][8] = {};
+    rows_dot<HD>(sc, Qs, Ks, ty, tx);                   // Q K^T
+    // mask only a tile where some key can be masked for these rows, as
+    // one compare against each row's last key; elsewhere the scale folds
+    // into the exponent's multiply-add
+    float mx[4], sc2 = scale2;
+    if (SEG || k0 + FT - 1 > cmax_tile) {
+      sc2 = 1.f;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        mx[r] = -INFINITY;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int col = k0 + tx + 8 * c;
+          bool masked = col > cmax[r];
+          if (SEG) masked |= segq[r] != segk[st * FT + tx + 8 * c];
+          float x = masked ? NEG2 : sc[r][c] * scale2;
+          x = col >= S ? -INFINITY : x;
+          sc[r][c] = x;
+          mx[r] = fmaxf(mx[r], x);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        mx[r] = sc[r][0];
+#pragma unroll
+        for (int c = 1; c < 8; ++c) mx[r] = fmaxf(mx[r], sc[r][c]);
+        mx[r] *= scale2;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float mn = fmaxf(m[r], row_max(mx[r]));
+      const float corr = hl::ex2(m[r] - mn);
+      m[r] = mn;
+      l[r] *= corr;
+#pragma unroll
+      for (int u = 0; u < CW; ++u) acc[r][u] *= corr;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        sc[r][c] = hl::ex2(fmaf(sc[r][c], sc2, -m[r]));
+        l[r] += sc[r][c];
+      }
+    }
+    __syncthreads();              // every read of K done: P takes its place
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        Ks[(ty + 16 * r) * L::SLD + tx + 8 * c] = sc[r][c];
+    __syncthreads();
+    rows_times<HD>(acc, Ks, Vs, ty, tx);                // O += P V
+    kt = kn;
+  }
+  hl::cp_async_wait<0>();         // nothing in flight at exit (no keys)
+#pragma unroll
+  for (int r = 0; r < 4; ++r) l[r] = row_sum(l[r]);
+
+  if (P > 1) {
+    // this split's partial, then the last split to arrive merges all of
+    // them in split order: m = max m_s, l = sum l_s 2^(m_s - m), acc =
+    // sum acc_s 2^(m_s - m)
+    auto slot = [&](int sp) { return part + (tile * P + sp) * SLOT; };
+    float* mine = slot(s);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = ty + 16 * r;
+#pragma unroll
+      for (int g = 0; g < CW / 4; ++g)
+        *reinterpret_cast<float4*>(mine + row * HD + tx * 4 + 32 * g) =
+            make_float4(acc[r][4 * g], acc[r][4 * g + 1], acc[r][4 * g + 2],
+                        acc[r][4 * g + 3]);
+      if (tx == 0) {
+        mine[FT * HD + row] = m[r];
+        mine[FT * HD + FT + row] = l[r];
+      }
+    }
+    __threadfence();              // the partial, before the count
+    __syncthreads();
+    if (tid == 0) last = atomicAdd(ctr + tile, 1) == P - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();              // every split's partial is seen
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = ty + 16 * r;
+      float mm = NEG2;
+      for (int sp = 0; sp < P; ++sp)
+        mm = fmaxf(mm, __ldcg(slot(sp) + FT * HD + row));
+      m[r] = mm;
+      l[r] = 0.f;
+#pragma unroll
+      for (int u = 0; u < CW; ++u) acc[r][u] = 0.f;
+      for (int sp = 0; sp < P; ++sp) {
+        const float* ps = slot(sp);
+        const float wgt = hl::ex2(__ldcg(ps + FT * HD + row) - mm);
+        l[r] = fmaf(__ldcg(ps + FT * HD + FT + row), wgt, l[r]);
+#pragma unroll
+        for (int g = 0; g < CW / 4; ++g) {
+          const float4 a = __ldcg(reinterpret_cast<const float4*>(
+              ps + row * HD + tx * 4 + 32 * g));
+          acc[r][4 * g] = fmaf(a.x, wgt, acc[r][4 * g]);
+          acc[r][4 * g + 1] = fmaf(a.y, wgt, acc[r][4 * g + 1]);
+          acc[r][4 * g + 2] = fmaf(a.z, wgt, acc[r][4 * g + 2]);
+          acc[r][4 * g + 3] = fmaf(a.w, wgt, acc[r][4 * g + 3]);
+        }
+      }
+    }
+    if (tid == 0) ctr[tile] = 0;
+  }
+
+  float* ob = o + (size_t)n * d.o_sn + (size_t)h * d.o_sh + tx * 4;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = q0 + ty + 16 * r;
+    if (row >= T) continue;
+    const float lc = fmaxf(l[r], 1e-30f), inv = 1.f / lc;
+#pragma unroll
+    for (int g = 0; g < CW / 4; ++g)
+      *reinterpret_cast<float4*>(ob + (size_t)row * d.o_st + 32 * g) =
+          make_float4(acc[r][4 * g] * inv, acc[r][4 * g + 1] * inv,
+                      acc[r][4 * g + 2] * inv, acc[r][4 * g + 3] * inv);
+    // in the natural log; a uniform row's m is NEG2: its lse is NEG + log(l)
+    if (lse && tx == 0)
+      lse[(size_t)nh * T + row] = (pl.uniform ? NEG : m[r] * LN2) + logf(lc);
+  }
+}
+
+// (N H ceil(T / FT)) query tiles, each in P splits, one block a split
+template <int HD, bool SEG>
 cudaError_t run_fp32(const Dims& d, const void* q, const void* k,
                      const void* v, const int* kvl, const int* seg, void* o,
-                     float* lse, int causal, int t0, cudaStream_t stream,
-                     void (*kern)(const float*, const float*, const float*,
-                                  const int*, const int*, float*, float*,
-                                  Dims, int, int, float)) {
-  const size_t smem = (size_t)(2 * BK * d.D + BK * BQ) * sizeof(float) +
-                      BK * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                     float* lse, float* part, int* ctr, int causal, int t0,
+                     int P, cudaStream_t stream) {
+  static unsigned done = 0;
+  constexpr int smem = 5 * Tiles<HD>::TILE * 4 + 2 * FT * 4;
+  cudaError_t err = hl::allow_smem(
+      done, reinterpret_cast<const void*>(fwd_f32<HD, SEG>), smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((d.T + BQ - 1) / BQ, d.N * d.H);
-  kern<<<grid, BQ, smem, stream>>>(
+  const long long blocks = (long long)d.N * d.H * ((d.T + FT - 1) / FT) * P;
+  fwd_f32<HD, SEG><<<(unsigned)blocks, FTHREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), kvl, seg, static_cast<float*>(o), lse, d,
-      causal, t0, 1.f / sqrtf((float)d.D));
+      static_cast<const float*>(v), kvl, seg, static_cast<float*>(o), lse,
+      part, ctr, d, causal, t0, LOG2E / sqrtf((float)HD), P);
   return cudaGetLastError();
 }
 
@@ -648,27 +852,35 @@ cudaError_t run_bf16(const Dims& d, const void* q, const void* k,
 // dims (host) = {N, H, T, S, D, then the (n, h, t) strides of q, k, v and
 // o}.
 // kv_lengths (N,) int32 for K5, null for K7; seg (N, T) int32 for K7
-// (T == S, t0 == 0), else null; lse (N*H, T) fp32 or null. D is 32 or
-// 64. Returns the launch's cudaError_t.
+// (T == S, t0 == 0), else null; lse (N*H, T) fp32 or null. fp32 only
+// (bf16 ignores them): ``splits`` (flash_cuda.fwd_f32_plan), and where it
+// is over 1 ``part``, [tiles][splits][FT * D + 2 FT] fp32, and ``ctr``,
+// an int32 counter a query tile, 0 before the launch and after it. D is
+// 32 or 64. Returns the launch's cudaError_t.
 extern "C" int hl_flash_fwd(const void* q, const void* k, const void* v,
                             const int* kv_lengths, const int* seg, void* o,
-                            float* lse, const int* dims, int causal, int t0,
-                            int bf16_, void* stream) {
+                            float* lse, float* part, int* ctr,
+                            const int* dims, int causal, int t0, int bf16_,
+                            int splits, void* stream) {
   Dims d;
   int* f = &d.N;
   for (int i = 0; i < 17; ++i) f[i] = dims[i];
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (splits < 1 || (!bf16_ && splits > 1 && (!part || !ctr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto fp32 = [&](auto kern) {
+    return kern(d, q, k, v, kv_lengths, seg, o, lse, part, ctr, causal, t0,
+                splits, s);
+  };
   cudaError_t err;
   if (d.D == 64)
     err = bf16_ ? run_bf16<64>(d, q, k, v, kv_lengths, seg, o, lse, causal,
                                t0, s)
-                : run_fp32(d, q, k, v, kv_lengths, seg, o, lse, causal, t0, s,
-                           flash_fp32<64>);
+                : fp32(seg ? &run_fp32<64, true> : &run_fp32<64, false>);
   else if (d.D == 32)
     err = bf16_ ? run_bf16<32>(d, q, k, v, kv_lengths, seg, o, lse, causal,
                                t0, s)
-                : run_fp32(d, q, k, v, kv_lengths, seg, o, lse, causal, t0, s,
-                           flash_fp32<32>);
+                : fp32(seg ? &run_fp32<32, true> : &run_fp32<32, false>);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

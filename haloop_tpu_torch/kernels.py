@@ -64,9 +64,9 @@ _SIGNATURES = {
     # dlp, penalty, T, N, C2, U, the plan (K, sweep warps, scatter warps,
     # frames, depth, dense, smem), stream
     "hl_star_bwd": [_P] * 8 + [_F] + [_I] * 11 + [_P],
-    # q, k, v, kv_lengths, seg, o, lse, dims (host int[17]), causal, t0,
-    # bf16, stream
-    "hl_flash_fwd": [_P] * 8 + [_I] * 3 + [_P],
+    # q, k, v, kv_lengths, seg, o, lse, part, counters, dims (host
+    # int[17]), causal, t0, bf16, splits (fp32), stream
+    "hl_flash_fwd": [_P] * 10 + [_I] * 4 + [_P],
     # q, k, v, o, do, kv_lengths, lse, scratch, dq, part, counters, dims
     # (host int[29]), causal, t0, bf16, splits (fp32), stream
     "hl_flash_bwd_dq": [_P] * 12 + [_I] * 4 + [_P],

@@ -4,9 +4,10 @@
 backward of K5 (``csrc/flash_bwd.cu``): dq (K6a), then dk and dv (K6b).
 In bf16 each is a warp-specialized Hopper kernel (wgmma fed by TMA
 through an mbarrier ring), in fp32 a CUDA-core one (exact FFMA in
-register tiles; K6a and K6b split their reduction over blocks where the
-output tiles alone leave SMs idle, ``bwd_f32_plan``, and merge the splits
-in split order inside the launch).
+register tiles of 64 rows; where the output tiles alone leave SMs idle K5
+splits its keys, ``fwd_f32_plan``, and K6a and K6b their reduction,
+``bwd_f32_plan``, over blocks, and the splits merge in split order inside
+the launch; K7 runs unsplit).
 
 Mirrors ``haloop_tpu.ops.flash.flash_attention`` and
 ``flash_attention_packed``:
@@ -43,8 +44,8 @@ from haloop_tpu_torch import kernels
 from haloop_tpu_torch.ops import flash as _flash
 
 HEAD_DIMS = (32, 64)          # the head widths the kernel is built for
-F32_TILE = 64                 # fp32 K6a/K6b: query rows and keys a tile
-_counters = {}                # (device, stream) -> fp32 K6's split counters
+F32_TILE = 64                 # fp32 K5/K6a/K6b: query rows and keys a tile
+_counters = {}                # (device, stream) -> fp32 split counters
 launches = 0                  # K5 calls
 lse_launches = 0              # K5 calls that also write the lse
 packed_launches = 0           # K7 calls
@@ -179,12 +180,21 @@ def _launch(name, q, k, v, kv_lengths, seg, causal, t0, with_lse):
         return o, lse
     dims = [N, H, T, S, D] + _strides(q, k, v, o)
     dims = (ctypes.c_int * len(dims))(*dims)
+    bf16 = q.dtype == torch.bfloat16
+    splits, part, ctr = 1, None, None
+    if not bf16 and seg is None:         # fp32 K7 runs unsplit
+        plan = fwd_f32_plan(N, H, T, S, D, causal, t0,
+                            kernels.multiprocessors(q.device))
+        if plan.splits > 1:
+            splits = plan.splits
+            part = torch.empty(plan.part, dtype=torch.float32,
+                               device=q.device)
+            ctr = _split_counters(q.device, kernels.stream_of(q),
+                                  plan.tiles)
     err = kernels.library().hl_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        kv_lengths.data_ptr() if kv_lengths is not None else None,
-        seg.data_ptr() if seg is not None else None, o.data_ptr(),
-        lse.data_ptr() if lse is not None else None, dims, int(causal),
-        int(t0), int(q.dtype == torch.bfloat16), kernels.stream_of(q))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_lengths),
+        _ptr(seg), o.data_ptr(), _ptr(lse), _ptr(part), _ptr(ctr), dims,
+        int(causal), int(t0), int(bf16), splits, kernels.stream_of(q))
     kernels.check(err, name)
     return o, lse
 
@@ -282,6 +292,18 @@ def _splits(tiles, reach, sms):
                key=lambda p: (-(-tiles * p // sms) * -(-reach // p), p))
 
 
+def fwd_f32_plan(N, H, T, S, D, causal, t0, sms):
+    """The grid of the fp32 K5 on a card of ``sms`` multiprocessors: query
+    tiles of F32_TILE rows, their keys split as fp32 K6a's are (the dq
+    side of ``bwd_f32_plan``) -> SimpleNamespace(tiles, splits, blocks
+    (tiles x splits), part: the fp32 scratch of the splits' (acc, m, l),
+    0 with one split)."""
+    p = bwd_f32_plan(N, H, T, S, D, causal, t0, sms)
+    return SimpleNamespace(
+        tiles=p.dq_tiles, splits=p.dq_splits, blocks=p.dq_blocks,
+        part=p.dq_blocks * F32_TILE * (D + 2) if p.dq_splits > 1 else 0)
+
+
 def bwd_f32_plan(N, H, T, S, D, causal, t0, sms):
     """The grids of the fp32 K6a (query tiles of F32_TILE rows, the keys
     split) and K6b (key tiles, the queries split) on a card of ``sms``
@@ -306,9 +328,9 @@ def bwd_f32_plan(N, H, T, S, D, causal, t0, sms):
 
 
 def _split_counters(device, stream, n):
-    """fp32 K6's per-tile arrival counters on ``device``, kept between
-    calls: each launch leaves them 0, and calls run in the order of the
-    stream they share, so each stream has its own."""
+    """fp32 K5's and K6's per-tile arrival counters on ``device``, kept
+    between calls: each launch leaves them 0, and calls run in the order
+    of the stream they share, so each stream has its own."""
     key = device.index, stream
     ctr = _counters.get(key)
     if ctr is None or ctr.numel() < n:

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """The flash attention kernels of the PyTorch port alone on one GPU: the
-bf16 forward (K5, K5 with its lse, and K7,
-``haloop_tpu_torch/csrc/flash_fwd.cu``) and the backward (K6a dq, K6b dk
-and dv, ``csrc/flash_bwd.cu``) in bf16 and in fp32: their build, checks
-against the plain versions, and their times.
+forward (K5, K5 with its lse, and K7, ``haloop_tpu_torch/csrc/flash_fwd.cu``)
+and the backward (K6a dq, K6b dk and dv, ``csrc/flash_bwd.cu``), each in
+bf16 and in fp32: their build, checks against the plain versions, and
+their times.
 
     python3 scripts/flash_fwd_probe.py                # checks, then times
     python3 scripts/flash_fwd_probe.py --backward     # the backward only
@@ -13,32 +13,36 @@ against the plain versions, and their times.
     python3 scripts/flash_fwd_probe.py --tree DIR --times-only
         # one tree's times and rates as a JSON line (what --against runs)
     python3 scripts/flash_fwd_probe.py --clocks
-        # fp32 K6a and K6b at hala's fp32 shape, each called for ~2 s
-        # while nvidia-smi samples the SM clock and the power draw
+        # fp32 K5 with its lse, K6a and K6b at hala's fp32 shape, each
+        # called for ~2 s while nvidia-smi samples the SM clock and power
 
 With ``--backward`` the checks and times are K6a's and K6b's alone and
 the rates hala's alone; ``--kernels-only`` leaves the rates out (to
-compare design variants quickly). The backward's checks and times cover
-both modes; in fp32 the checks also force other splits of the reduction
-than ``flash_cuda.bwd_f32_plan``'s (``forced_splits``), and the times
-at --grad-norms' shape with other splits forced (``F32_SPLITS``; a
-parent tree without the split has none, and --against prints only the
-lines both trees time).
+compare design variants quickly). The checks and times cover both
+dtypes; in fp32 the checks also force other splits than
+``flash_cuda.fwd_f32_plan``'s (the forward's keys) and ``bwd_f32_plan``'s
+(the backward's reduction) (``forced_splits``, ``forced_fwd_splits``),
+and the times at --grad-norms' shape with other splits forced
+(``F32_SPLITS``; a parent tree without the split has none, and --against
+prints only the lines both trees time).
 
 DIR is another checkout of the repository (``git archive`` of a commit
 unpacked into a directory that .gitignore lists); each tree builds its
 own kernels into its own ``build/``. The shapes are ``chip_smoke.py``'s:
 K5 at hap --no-pack's (32, 12, 512, 64) causal with ragged key lengths,
 K5 with its lse at hala's (8, 12, 1024, 64), K7 at hap's packed (16, 12,
-1024, 64) with 64-token and with pack_segments' ragged segments, K6a and
-K6b at hala's (8, 12, 1024, 64) causal in bf16, and in fp32 at hala's
-fp32 (2, 12, 1024, 64) causal and --grad-norms' (1, 8, 384, 64)
-non-causal (``chip_smoke.GN_ATTN``), each beside SDPA's backward in the
-same dtype (dq, dk, dv from one autograd call). Times are CUDA events
-around one call behind a spin (``chip_smoke.cuda_ms``), median of 5, the
-card's name and power limit printed first. The rates are the hap and hala paths that
-run these kernels, and the device time of one hala update from
-torch.profiler (``rates``). Needs one card; imports nothing of JAX.
+1024, 64) with 64-token and with pack_segments' ragged segments; in fp32
+K5 with its lse at --grad-norms' (1, 8, 384, 64) non-causal
+(``chip_smoke.GN_ATTN``) and hala's fp32 (2, 12, 1024, 64) causal, and K5
+at (4, 12, 512, 64) causal with ragged key lengths, each beside SDPA in
+fp32; K6a and K6b at hala's (8, 12, 1024, 64) causal in bf16, and in
+fp32 at hala's fp32 (2, 12, 1024, 64) causal and --grad-norms' shape,
+each beside SDPA's backward in the same dtype (dq, dk, dv from one
+autograd call). Times are CUDA events around one call behind a spin
+(``chip_smoke.cuda_ms``), median of 5, the card's name and power limit
+printed first. The rates are the hap and hala paths that run these
+kernels, and the device time of one hala update from torch.profiler
+(``rates``). Needs one card; imports nothing of JAX.
 """
 
 import argparse
@@ -73,24 +77,33 @@ def ptxas_lines(log, name="flash"):
     return out
 
 
+def ragged_lengths(torch, N, T):
+    """chip_smoke's ragged key lengths: T // 2 to T, the first T."""
+    lens = torch.randint(T // 2, T + 1, (N,),
+                         generator=torch.Generator().manual_seed(2))
+    lens[0] = T
+    return lens.to("cuda", torch.int32)
+
+
 def cases(torch, cs, pack_segments):
-    """(label, fn, plain fn, library fn, kind) at the main path's shapes;
-    kind is "k5", "k5_lse" or "k7"."""
+    """(label, (q, k, v, kv_lengths or segment ids, causal), kind) at the
+    main path's shapes; kind is "k5", "k5_lse" or "k7"."""
     import numpy as np
     dev = torch.device("cuda", 0)
     out = []
     H, D = 12, 64
     q, k, v = cs.qkv_views(torch, dev, 32, H, 512, D, torch.bfloat16, 11)
-    lens = torch.randint(256, 513, (32,),
-                         generator=torch.Generator().manual_seed(2))
-    lens[0] = 512
-    kvl = lens.to(dev, torch.int32)
     out.append(("K5 (32, 12, 512, 64) causal, ragged key lengths",
-                (q, k, v, kvl), "k5"))
+                (q, k, v, ragged_lengths(torch, 32, 512), True), "k5"))
     q, k, v = cs.qkv_views(torch, dev, 8, H, 1024, D, torch.bfloat16, 21)
     kvl = torch.full((8,), 1024, dtype=torch.int32, device=dev)
-    out.append(("K5 with lse (8, 12, 1024, 64) causal", (q, k, v, kvl),
-                "k5_lse"))
+    out.append(("K5 with lse (8, 12, 1024, 64) causal",
+                (q, k, v, kvl, True), "k5_lse"))
+    for label, (N, Hh, T, Dd), causal, ragged, kind in F32_CASES:
+        q, k, v = cs.qkv_views(torch, dev, N, Hh, T, Dd, torch.float32, 41)
+        kvl = ragged_lengths(torch, N, T) if ragged else \
+            torch.full((N,), T, dtype=torch.int32, device=dev)
+        out.append((label, (q, k, v, kvl, causal), kind))
     N, T = 16, 1024
     rng = np.random.default_rng(0)
     ragged = [rng.integers(1, 50257, int(n)).tolist()
@@ -102,22 +115,34 @@ def cases(torch, cs, pack_segments):
         q, k, v = cs.qkv_views(torch, dev, N, H, T, D, torch.bfloat16, 13)
         seg = torch.from_numpy(np.ascontiguousarray(seg_np, np.int32)) \
             .to(dev)
-        out.append((f"K7 (16, 12, 1024, 64) {label}", (q, k, v, seg), "k7"))
+        out.append((f"K7 (16, 12, 1024, 64) {label}",
+                    (q, k, v, seg, True), "k7"))
     return out
 
 
+# the fp32 forward's timed shapes: (label, (N, H, T, D), causal, ragged
+# key lengths, kind)
+F32_CASES = [
+    ("fp32 K5 with lse (1, 8, 384, 64) non-causal (--grad-norms)",
+     (1, 8, 384, 64), False, False, "k5_lse"),
+    ("fp32 K5 with lse (2, 12, 1024, 64) causal", (2, 12, 1024, 64), True,
+     False, "k5_lse"),
+    ("fp32 K5 (4, 12, 512, 64) causal, ragged key lengths",
+     (4, 12, 512, 64), True, True, "k5")]
+
+
 def run_case(flash, flash_cuda, args, kind):
-    q, k, v, x = args
+    q, k, v, x, causal = args
     if kind == "k5":
-        return (lambda: flash_cuda.flash_fwd_cuda(q, k, v, x, True, 0),
-                lambda: flash._reference(q, k, v, x, True, 0))
+        return (lambda: flash_cuda.flash_fwd_cuda(q, k, v, x, causal, 0),
+                lambda: flash._reference(q, k, v, x, causal, 0))
     if kind == "k5_lse":
-        return (lambda: flash_cuda.flash_fwd_cuda(q, k, v, x, True, 0,
+        return (lambda: flash_cuda.flash_fwd_cuda(q, k, v, x, causal, 0,
                                                   with_lse=True),
-                lambda: flash._reference(q, k, v, x, True, 0,
+                lambda: flash._reference(q, k, v, x, causal, 0,
                                          with_lse=True))
-    return (lambda: flash_cuda.flash_packed_cuda(q, k, v, x, True),
-            lambda: flash._packed_reference(q, k, v, x, True))
+    return (lambda: flash_cuda.flash_packed_cuda(q, k, v, x, causal),
+            lambda: flash._packed_reference(q, k, v, x, causal))
 
 
 def k6_args(torch, cs, flash_cuda, N, H, T, S, D, kvl, causal, t0, seed,
@@ -167,10 +192,26 @@ def forced_splits(flash_cuda, dq, dkv):
     return forced
 
 
+def forced_fwd_splits(flash_cuda, splits):
+    """A ``fwd_f32_plan`` whose splits are ``splits`` (at most the key
+    tiles), for ``flash_cuda.fwd_f32_plan = ...``."""
+    from types import SimpleNamespace
+    plan = flash_cuda.fwd_f32_plan
+
+    def forced(N, H, T, S, D, causal, t0, sms):
+        p = plan(N, H, T, S, D, causal, t0, sms)
+        tile = flash_cuda.F32_TILE
+        return SimpleNamespace(
+            tiles=p.tiles, splits=splits, blocks=p.tiles * splits,
+            part=p.tiles * splits * tile * (D + 2) if splits > 1 else 0)
+    return forced
+
+
 def times(tree, backward_only=False):
-    """-> {label: ms}: the kernels at the main path's shapes, and fp32
-    K6a/K6b at --grad-norms' shape also with the plan's splits forced to
-    each of F32_SPLITS (where the tree splits)."""
+    """-> {label: ms}: the kernels at the main path's shapes (the fp32
+    forward's beside SDPA in fp32), and fp32 K5 with its lse and K6a/K6b
+    at --grad-norms' shape also with the plan's splits forced to each of
+    F32_SPLITS (where the tree splits)."""
     import torch
     import torch.nn.functional as F
     cs, kernels, flash, flash_cuda, pack_segments = load(tree)
@@ -180,6 +221,21 @@ def times(tree, backward_only=False):
         for label, args, kind in cases(torch, cs, pack_segments):
             kern, _ = run_case(flash, flash_cuda, args, kind)
             res[label] = cs.cuda_ms(kern)
+            if label.startswith("fp32"):
+                q, k, v, _, causal = args
+                res[f"SDPA {label}"] = cs.cuda_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=causal))
+            if label.startswith("fp32") and "--grad-norms" in label and \
+                    hasattr(flash_cuda, "fwd_f32_plan"):
+                plan = flash_cuda.fwd_f32_plan
+                for p in F32_SPLITS:
+                    flash_cuda.fwd_f32_plan = forced_fwd_splits(flash_cuda,
+                                                                p)
+                    try:
+                        res[f"{label} splits {p}"] = cs.cuda_ms(kern)
+                    finally:
+                        flash_cuda.fwd_f32_plan = plan
     for label, N, H, T, causal, dtype in K6_TIMED:
         args = k6_args(torch, cs, flash_cuda, N, H, T, T, 64, [T] * N,
                        causal, 0, 21, dtype=getattr(torch, dtype))
@@ -417,6 +473,95 @@ def checks_f32(torch, cs, flash_cuda, report):
                     flash_cuda.bwd_f32_plan = plan
 
 
+def checks_fwd_f32(torch, cs, flash, flash_cuda, pack_segments):
+    """fp32 K5 (o within ATTN_TOL["float32"], lse within 1e-3) at the
+    64-row tiles' edges (T, S at 1, 63, 64, 65, 127, 129, 300; t0 up to
+    128; key lengths full, mid-tile and 0; D 64 and 32), at
+    --grad-norms' shape (also x2 with key lengths [200, 0]) and at (2,
+    12, 960, 1024) causal t0 = 64 with ragged lengths, each at the plan's
+    splits and with other splits forced; fp32 K7 against
+    ``_packed_reference``; the same bits twice each. -> labels that
+    failed."""
+    dev = torch.device("cuda", 0)
+    tol = cs.ATTN_TOL["float32"]
+    bad = []
+    g = torch.Generator().manual_seed(7)
+
+    def report(label, q, k, v, kvl, causal, t0):
+        p = flash_cuda.fwd_f32_plan(*q.shape[:3], k.shape[2], q.shape[3],
+                                    causal, t0, cs_sms)
+        o, lse = flash_cuda.flash_fwd_cuda(q, k, v, kvl, causal, t0,
+                                           with_lse=True)
+        o2, lse2 = flash_cuda.flash_fwd_cuda(q, k, v, kvl, causal, t0,
+                                             with_lse=True)
+        torch.cuda.synchronize()
+        o_e, lse_e = flash._reference(q, k, v, kvl, causal, t0,
+                                      with_lse=True)
+        ok, err, mean = cs.within(torch, o, o_e, tol)
+        dl = (lse - lse_e).abs().max().item()
+        same = torch.equal(o, o2) and torch.equal(lse, lse2)
+        ok = ok and dl <= 1e-3 and same
+        print(f"{'ok ' if ok else 'BAD'} fp32 K5 {label} ({p.splits} "
+              f"split(s), {p.blocks} blocks): max|d| {err:.3e} mean "
+              f"{mean:.3e}, lse max|d| {dl:.3e}; same bits twice {same}",
+              flush=True)
+        if not ok:
+            bad.append(f"fp32 K5 {label}")
+
+    cs_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for D in (64, 32):
+        for T, S, causal, t0 in ((1, 1, True, 0), (63, 63, True, 0),
+                                 (64, 64, True, 0), (65, 65, True, 0),
+                                 (127, 127, True, 0), (129, 129, True, 0),
+                                 (300, 300, True, 0), (100, 300, True, 7),
+                                 (129, 300, True, 62), (64, 300, True, 126),
+                                 (1, 129, True, 128), (300, 300, False, 0),
+                                 (128, 129, False, 0), (65, 300, False, 0)):
+            q = torch.randn((3, 2, T, D), generator=g).to(dev)
+            k, v = (torch.randn((3, 2, S, D), generator=g).to(dev)
+                    for _ in range(2))
+            kvl = torch.tensor([S, max(S // 2 + 1, 1), 0],
+                               dtype=torch.int32, device=dev)
+            report(f"T={T} S={S} causal={causal} t0={t0} D={D}", q, k, v,
+                   kvl, causal, t0)
+    N, H, T, D = cs.GN_ATTN
+    plan = flash_cuda.fwd_f32_plan
+    for label, (n, h, t, s_, causal, t0, lens) in (
+            (f"--grad-norms {cs.GN_ATTN}", (N, H, T, T, False, 0, [T])),
+            (f"--grad-norms {cs.GN_ATTN} x2, key lengths [200, 0]",
+             (2, H, T, T, False, 0, [200, 0])),
+            ("(2, 12, 960, 1024, 64) causal t0=64, ragged",
+             (2, 12, 960, 1024, True, 64, cs.K6_RAGGED[:2]))):
+        q = torch.randn((n, h, t, D), generator=g).to(dev)
+        k, v = (torch.randn((n, h, s_, D), generator=g).to(dev)
+                for _ in range(2))
+        kvl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        report(label, q, k, v, kvl, causal, t0)
+        for p in (1, 2, 3, 6):
+            flash_cuda.fwd_f32_plan = forced_fwd_splits(flash_cuda, p)
+            try:
+                report(f"{label}, forced splits {p}", q, k, v, kvl, causal,
+                       t0)
+            finally:
+                flash_cuda.fwd_f32_plan = plan
+    for label, args, kind in cases(torch, cs, pack_segments):
+        if kind != "k7" or "ragged" not in label:
+            continue
+        q, k, v, seg, causal = args
+        q, k, v = (x.float() for x in (q, k, v))
+        for c in (True, False):
+            got = flash_cuda.flash_packed_cuda(q, k, v, seg, c)
+            again = flash_cuda.flash_packed_cuda(q, k, v, seg, c)
+            ok, err, mean = cs.within(torch, got, flash._packed_reference(
+                q, k, v, seg, c), tol)
+            ok = ok and torch.equal(got, again)
+            print(f"{'ok ' if ok else 'BAD'} fp32 {label} causal={c}: "
+                  f"max|d| {err:.3e} mean {mean:.3e}", flush=True)
+            if not ok:
+                bad.append(f"fp32 {label} causal={c}")
+    return bad
+
+
 def checks(tree, backward_only=False):
     """Each piece of the design on its own input, then the main path's
     shapes and tile edges against the plain versions."""
@@ -429,10 +574,11 @@ def checks(tree, backward_only=False):
     bad = checks_backward(torch, cs, flash, flash_cuda)
     if backward_only:
         return bad
+    bad += checks_fwd_f32(torch, cs, flash, flash_cuda, pack_segments)
     dev = torch.device("cuda", 0)
-    tol = cs.ATTN_TOL["bfloat16"]
 
     def report(label, got, want):
+        tol = cs.ATTN_TOL[str(want.dtype).removeprefix("torch.")]
         ok, err, mean = cs.within(torch, got, want, tol)
         print(f"{'ok ' if ok else 'BAD'} {label}: max|d| {err:.3e} mean "
               f"{mean:.3e}", flush=True)
@@ -499,12 +645,13 @@ def checks(tree, backward_only=False):
 
 
 def clocks(tree):
-    """fp32 K6a, then K6b, at hala's fp32 (2, 12, 1024, 64) causal, each
-    called back to back for ~2 s while ``nvidia-smi`` samples the SM
-    clock and the power draw every 100 ms: the median clock under the
-    load, and each kernel's FFMA rate (its operations over its time, as
-    chip_smoke.k6_bound counts them) against the card's 128 FFMA a clock
-    an SM at that clock and at the data sheet's 67 TFLOP/s."""
+    """fp32 K5 with its lse, K6a, then K6b, at hala's fp32 (2, 12, 1024,
+    64) causal, each called back to back for ~2 s while ``nvidia-smi``
+    samples the SM clock and the power draw every 100 ms: the median clock
+    under the load, and each kernel's FFMA rate (its operations over its
+    time, as chip_smoke.attn_bound and k6_bound count them: 2, 3 or 4
+    products a (query, key) pair) against the card's 128 FFMA a clock an
+    SM at that clock and at the data sheet's 67 TFLOP/s."""
     import statistics
     import time
     import torch
@@ -517,10 +664,14 @@ def clocks(tree):
     flash_cuda._bwd_dq(b)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     pairs = N * T * (T + 1) // 2
-    for name, fn, products in (("K6a", flash_cuda._bwd_dq, 3),
-                               ("K6b", flash_cuda._bwd_dkv, 4)):
+    q, k, v, kvl = args[:4]
+    for name, fn, products, elem in (
+            ("K5-lse", lambda b: flash_cuda.flash_fwd_cuda(
+                q, k, v, kvl, True, 0, with_lse=True), 2, cs.ATTN_ELEM),
+            ("K6a", flash_cuda._bwd_dq, 3, cs.K6_ELEM),
+            ("K6b", flash_cuda._bwd_dkv, 4, cs.K6_ELEM)):
         ms = cs.cuda_ms(lambda: fn(b))
-        flops = 2.0 * products * pairs * H * D + cs.K6_ELEM * pairs * H
+        flops = 2.0 * products * pairs * H * D + elem * pairs * H
         smi = subprocess.Popen(
             ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
              "--format=csv,noheader,nounits", "-lms", "100"],

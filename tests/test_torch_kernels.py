@@ -1347,6 +1347,10 @@ FLASH_CASES = [
     (2, 2, 127, 300, True, 7, 32),
     (2, 2, 1, 300, True, 7, 64),
     (8, 12, 1024, 1024, True, 0, 64),    # hala at GPT-2 small (with lse)
+    # fp32: --grad-norms' (chip_smoke.GN_ATTN, 2 key splits), and 3 key
+    # splits with a key length that ends inside one
+    (1, 8, 384, 384, False, 0, 64),
+    (2, 2, 384, 384, True, 5, 32),
 ]
 
 
@@ -1357,7 +1361,7 @@ def test_flash_kernel_matches_plain(cuda, N, H, T, S, causal, t0, D, dtype):
     q, k, v = _qkv(cuda, N, H, T, S, D, dtype, seed=T + S + D,
                    fused=T == S)
     kvl = torch.full((N,), S, dtype=torch.int32)
-    kvl[1] = max(S // 2, 1)
+    kvl[1:2] = max(S // 2, 1)
     kvl = kvl.to(cuda)
     before = flash_cuda.launches
     o, lse = flash_cuda.flash_fwd_cuda(q, k, v, kvl, causal, t0,
